@@ -1,0 +1,376 @@
+"""Batched elliptic-curve kernels on the card: K2 `scalar_mul`, K3
+`point_butterfly` and K4 `fixed_base`.
+
+Counterpart of `porla_tpu/curves/pallas_curve.py`. Each public function
+takes (B, 16)-limb tensors (Montgomery points, standard-form scalars) and
+returns JacPoints on the same device. A CPU tensor goes to the function's
+plain torch version (`*_plain`, the same formulas lane for lane, so the
+outputs are bit-identical Jacobian limbs); a CUDA tensor launches the
+kernel or raises.
+
+- K2 (`csrc/scalar_mul.cu`): windowed mode for nbits < 256 (the audit
+  MSMs run at nbits = 32) and GLV mode for nbits = 256, with the scalar
+  split done on the host (`curves/glv.py`); each mode has its own launch
+  count.
+- K3 (`csrc/point_butterfly.cu`): (m0 + s*m1, m0 - s*m1) with the GLV
+  scalar mul, 256-bit scalars only.
+- K4 (`csrc/fixed_base.cu`): scalar_i * G_(i mod ng) from per-window
+  affine tables; `fb_msm_groups` sums lane groups afterwards in plain
+  torch.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import torch
+
+from porla_tpu_torch import native
+from porla_tpu_torch.curves import glv
+from porla_tpu_torch.curves.weierstrass import (CurveOps, JacPoint, index,
+                                                lookup, select)
+from porla_tpu_torch.fields import limbs as L
+from porla_tpu_torch.fields import mont
+from porla_tpu_torch.golden import ecc
+from porla_tpu_torch.utils import trace
+
+
+def _nibble(scalars, w: int):
+    """4-bit window w (LSB first) of (B, 16) limb scalars -> (B,)."""
+    return (scalars[..., w // 4] >> (4 * (w % 4))) & 0xF
+
+
+def _check_points(p: JacPoint, B: int):
+    for c in p:
+        if c.shape != (B, L.NLIMBS):
+            raise ValueError(f"point coordinate shape {tuple(c.shape)}, "
+                             f"expected ({B}, {L.NLIMBS})")
+
+
+def _empty_points(like: torch.Tensor) -> JacPoint:
+    return JacPoint(torch.empty_like(like), torch.empty_like(like),
+                    torch.empty_like(like))
+
+
+# --- GLV split (host) --------------------------------------------------------
+
+class GlvScalars:
+    """Host GLV decomposition of a (B, 16) scalar batch: magnitudes k1, k2
+    (B, 16) limbs < 2^128, sign flags g1, g2 (B,), and beta's Montgomery
+    form (the endomorphism's field constant)."""
+
+    def __init__(self, ops: CurveOps, scalars: torch.Tensor):
+        gp = glv.params_for(ops.curve)
+        cache: dict = {}
+        rows = []
+        for k in L.tensor_to_ints(scalars):
+            d = cache.get(k)
+            if d is None:
+                d = cache[k] = glv.decompose(k, gp)
+            rows.append(d)
+        dev = scalars.device
+        self.k1 = L.ints_to_tensor([d[0] for d in rows], dev)
+        self.k2 = L.ints_to_tensor([d[2] for d in rows], dev)
+        self.g1 = torch.tensor([d[1] for d in rows], dtype=torch.int64,
+                               device=dev)
+        self.g2 = torch.tensor([d[3] for d in rows], dtype=torch.int64,
+                               device=dev)
+        self.beta_mont = ops.fp.to_mont_int(gp.beta)
+        self.beta = L.ints_to_tensor([self.beta_mont], dev)[0]
+
+
+def _check_glv(g: GlvScalars, B: int, device) -> None:
+    native.require(device, g.k1, g.k2, g.g1, g.g2)
+    if g.k1.shape != (B, L.NLIMBS) or g.k2.shape != (B, L.NLIMBS) \
+            or g.g1.shape != (B,) or g.g2.shape != (B,):
+        raise ValueError(f"GLV split does not match {B} lanes")
+
+
+def glv_scalar_mul_plain(ops: CurveOps, p: JacPoint, g: GlvScalars) -> JacPoint:
+    """k*P = k1*(±P) + k2*(±phi(P)), 32 windows of (4 doublings + 2 table
+    adds) — the plain version of K2's GLV mode."""
+    p2 = JacPoint(mont.mont_mul(p.x, g.beta.expand_as(p.x), ops.fp), p.y, p.z)
+    q1 = select(g.g1 != 0, ops.neg(p), p)
+    q2 = select(g.g2 != 0, ops.neg(p2), p2)
+    t1 = ops.table16(q1)
+    t2 = ops.table16(q2)
+    acc = ops.infinity(p.batch_shape, p.device)
+    for w in reversed(range(32)):
+        for _ in range(4):
+            acc = ops.double(acc)
+        acc = ops.add(acc, lookup(t1, _nibble(g.k1, w)))
+        acc = ops.add(acc, lookup(t2, _nibble(g.k2, w)))
+    return acc
+
+
+# --- K2 scalar_mul ------------------------------------------------------------
+
+def scalar_mul_plain(ops: CurveOps, p: JacPoint, scalars, nbits: int = 256):
+    if nbits == 256:
+        return glv_scalar_mul_plain(ops, p, GlvScalars(ops, scalars))
+    return ops.scalar_mul(p, scalars, nbits)
+
+
+def scalar_mul(ops: CurveOps, p: JacPoint, scalars: torch.Tensor,
+               nbits: int = 256) -> JacPoint:
+    """scalars[i] * p[i] for (B, 16) points and standard-form scalars (the
+    low nbits used; nbits = 256 takes the GLV mode after a host split)."""
+    B = p.x.shape[0]
+    _check_points(p, B)
+    if scalars.shape != (B, L.NLIMBS) or nbits % 4 or not 0 < nbits <= 256:
+        raise ValueError(f"scalars {tuple(scalars.shape)} / nbits {nbits}")
+    if p.x.device.type == "cpu":
+        return scalar_mul_plain(ops, p, scalars, nbits)
+    native.require(p.x.device, *p, scalars)
+    if nbits == 256:
+        return launch_scalar_mul_glv(ops, p, GlvScalars(ops, scalars))
+    return launch_scalar_mul_window(ops, p, scalars, nbits)
+
+
+def launch_scalar_mul_window(ops: CurveOps, p: JacPoint, scalars, nbits):
+    """K2's windowed mode on checked CUDA operands."""
+    B = p.x.shape[0]
+    dev = p.x.device
+    lib = native.library()
+    out = _empty_points(p.x)
+    rc = lib.porla_scalar_mul_window(
+        *map(native.ptr, p), native.ptr(scalars), nbits,
+        *map(native.ptr, out), B, native.mod_words(ops.fp),
+        native.stream(dev))
+    native.KERNELS["scalar_mul_window"].launches += 1
+    native.check(rc, "scalar_mul_window")
+    return out
+
+
+def launch_scalar_mul_glv(ops: CurveOps, p: JacPoint, g: GlvScalars):
+    """K2's GLV mode on checked CUDA operands and a host split `g`."""
+    B = p.x.shape[0]
+    dev = p.x.device
+    _check_glv(g, B, dev)
+    lib = native.library()
+    out = _empty_points(p.x)
+    rc = lib.porla_scalar_mul_glv(
+        *map(native.ptr, p), native.ptr(g.k1), native.ptr(g.k2),
+        native.ptr(g.g1), native.ptr(g.g2), native.fe_words(g.beta_mont),
+        *map(native.ptr, out), B, native.mod_words(ops.fp),
+        native.stream(dev))
+    native.KERNELS["scalar_mul_glv"].launches += 1
+    native.check(rc, "scalar_mul_glv")
+    return out
+
+
+# --- K3 point_butterfly -----------------------------------------------------
+
+def glv_butterfly_plain(ops: CurveOps, m0: JacPoint, m1: JacPoint,
+                        g: GlvScalars):
+    """The plain version of K3 for a host split `g`."""
+    t = glv_scalar_mul_plain(ops, m1, g)
+    return ops.add(m0, t), ops.add(m0, ops.neg(t))
+
+
+def point_butterfly_plain(ops: CurveOps, m0: JacPoint, m1: JacPoint, scalars):
+    return glv_butterfly_plain(ops, m0, m1, GlvScalars(ops, scalars))
+
+
+def point_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
+                    scalars: torch.Tensor, nbits: int = 256):
+    """(m0 + s*m1, m0 - s*m1) per lane — the MAC-mirror butterfly
+    (reference Server.hpp:1592-1609) as one kernel. 256-bit scalars (the
+    GLV body, split on the host); other widths are not ported."""
+    B = m0.x.shape[0]
+    _check_points(m0, B)
+    _check_points(m1, B)
+    if scalars.shape != (B, L.NLIMBS):
+        raise ValueError(f"scalars {tuple(scalars.shape)}, expected ({B}, 16)")
+    if nbits != 256:
+        raise NotImplementedError("point_butterfly ports the GLV kernel "
+                                  "only (nbits = 256)")
+    if m0.x.device.type == "cpu":
+        return point_butterfly_plain(ops, m0, m1, scalars)
+    native.require(m0.x.device, *m0, *m1, scalars)
+    return launch_point_butterfly(ops, m0, m1, GlvScalars(ops, scalars))
+
+
+def launch_point_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
+                           g: GlvScalars):
+    """K3 on checked CUDA operands and a host split `g`."""
+    B = m0.x.shape[0]
+    dev = m0.x.device
+    _check_glv(g, B, dev)
+    lib = native.library()
+    hi = _empty_points(m0.x)
+    lo = _empty_points(m0.x)
+    rc = lib.porla_point_butterfly(
+        *map(native.ptr, m0), *map(native.ptr, m1), native.ptr(g.k1),
+        native.ptr(g.k2), native.ptr(g.g1), native.ptr(g.g2),
+        native.fe_words(g.beta_mont), *map(native.ptr, hi),
+        *map(native.ptr, lo), B, native.mod_words(ops.fp), native.stream(dev))
+    native.KERNELS["point_butterfly"].launches += 1
+    native.check(rc, "point_butterfly")
+    return hi, lo
+
+
+# --- K4 fixed_base ----------------------------------------------------------
+
+class FbTable:
+    """Per-window affine lookup tables for a fixed set of ng bases:
+    coords (nwin, 16, ng, 16) int64 limbs (Montgomery; z in {0, R}),
+    built once on the host and placed on each device once."""
+
+    def __init__(self, ops: CurveOps, coords, nbits: int, ng: int):
+        self.ops = ops
+        self.coords = coords            # host JacPoint
+        self.nbits = nbits
+        self.ng = ng
+        self._dev: dict = {}
+
+    def on(self, device) -> JacPoint:
+        key = str(device)
+        t = self._dev.get(key)
+        if t is None:
+            t = self._dev[key] = self.coords.to(device)
+        return t
+
+
+def _batch_add_affine(cv: ecc.Curve, ps: list, qs: list) -> list:
+    """Pairwise affine sums p_i + q_i (ecc.add semantics, INF allowed) with
+    one modular inversion for the whole batch (Montgomery's trick)."""
+    p = cv.p
+    dens, kinds = [], []
+    for a, b in zip(ps, qs):
+        if a is ecc.INF or b is ecc.INF:
+            kinds.append(0)
+            dens.append(1)
+        elif a[0] != b[0]:
+            kinds.append(1)
+            dens.append((b[0] - a[0]) % p)
+        elif (a[1] + b[1]) % p == 0:
+            kinds.append(0)
+            dens.append(1)
+        else:
+            kinds.append(2)
+            dens.append(2 * a[1] % p)
+    prefix = [1]
+    for d in dens:
+        prefix.append(prefix[-1] * d % p)
+    inv = pow(prefix[-1], -1, p)
+    out = [None] * len(dens)
+    for i in range(len(dens) - 1, -1, -1):
+        d_inv = inv * prefix[i] % p
+        inv = inv * dens[i] % p
+        a, b = ps[i], qs[i]
+        if kinds[i] == 0:
+            out[i] = ecc.add(cv, a, b)
+            continue
+        if kinds[i] == 1:
+            lam = (b[1] - a[1]) * d_inv % p
+        else:
+            lam = 3 * a[0] * a[0] * d_inv % p
+        x3 = (lam * lam - a[0] - b[0]) % p
+        out[i] = (x3, (lam * (a[0] - x3) - a[1]) % p)
+    return out
+
+
+def build_fb_table(ops: CurveOps, gens_affine, nbits: int = 256) -> FbTable:
+    """T_w[d] = d * 16^w * G_g on the host (exact affine arithmetic) for
+    every base (affine (x, y) int pairs or INF)."""
+    cur = ops.curve
+    ng = len(gens_affine)
+    nwin = nbits // 4
+    flat = []                                  # (w, d, g) order
+    bases = list(gens_affine)
+    for w in range(nwin):
+        row = [ecc.INF] * ng                   # d = 0
+        e = [ecc.INF] * ng
+        for _ in range(1, 16):
+            e = _batch_add_affine(cur, e, bases)
+            row += e
+        flat += row
+        if w != nwin - 1:
+            for _ in range(4):
+                bases = _batch_add_affine(cur, bases, bases)
+    jp = ops.from_affine(flat)
+    shape = (nwin, 16, ng, L.NLIMBS)
+    return FbTable(ops, JacPoint(*(c.reshape(shape) for c in jp)), nbits, ng)
+
+
+_FB_CACHE: dict = {}
+
+
+def fb_table_for(ops: CurveOps, generators: JacPoint,
+                 nbits: int = 256) -> FbTable:
+    """Table for a batch of bases, cached by coordinate digest (the
+    Pedersen generators and the MAC base h never change within a run)."""
+    host = [L.to_numpy(c) for c in generators]
+    key = (hashlib.sha256(b"".join(c.tobytes() for c in host)).hexdigest(),
+           nbits, ops.fp.n)
+    tbl = _FB_CACHE.get(key)
+    if tbl is None:
+        with trace.span("fb_table", ng=len(host[0]), nbits=nbits):
+            affine = ops.to_affine(generators)
+            tbl = _FB_CACHE[key] = build_fb_table(ops, affine, nbits)
+    return tbl
+
+
+def fb_scalar_mul_plain(table: FbTable, scalars) -> JacPoint:
+    ops = table.ops
+    B = scalars.shape[0]
+    dev = scalars.device
+    t = table.on(dev)
+    flat = JacPoint(*(c.reshape(-1, L.NLIMBS) for c in t))
+    lane_g = torch.arange(B, device=dev) % table.ng
+    acc = ops.infinity((B,), dev)
+    for w in range(table.nbits // 4):
+        e = (w * 16 + _nibble(scalars, w)) * table.ng + lane_g
+        acc = ops.madd(acc, index(flat, e))
+    return acc
+
+
+def fb_scalar_mul(table: FbTable, scalars: torch.Tensor) -> JacPoint:
+    """scalars[i] * base[i % ng] for (B, 16)-limb standard-form scalars
+    (< 2^nbits), lanes cycling through the table's base pattern."""
+    B = scalars.shape[0]
+    if scalars.shape != (B, L.NLIMBS):
+        raise ValueError(f"scalars {tuple(scalars.shape)}, expected (B, 16)")
+    if scalars.device.type == "cpu":
+        return fb_scalar_mul_plain(table, scalars)
+    native.require(scalars.device, scalars, *table.on(scalars.device))
+    return _launch_fixed_base(table, scalars)
+
+
+def _launch_fixed_base(table, scalars):
+    B = scalars.shape[0]
+    dev = scalars.device
+    t = table.on(dev)
+    lib = native.library()
+    out = _empty_points(scalars)
+    rc = lib.porla_fixed_base(*map(native.ptr, t), native.ptr(scalars),
+                              *map(native.ptr, out), B, table.ng,
+                              table.nbits // 4,
+                              native.mod_words(table.ops.fp),
+                              native.stream(dev))
+    native.KERNELS["fixed_base"].launches += 1
+    native.check(rc, "fixed_base")
+    return out
+
+
+def fb_msm_groups(table: FbTable, scalars: torch.Tensor,
+                  nout: int) -> JacPoint:
+    """scalars[i] * base[i % ng] summed within nout contiguous lane groups
+    -> (nout, 16) JacPoint. The group sum is a lane-halving tree of plain
+    torch adds after K4."""
+    B = scalars.shape[0]
+    assert B % nout == 0, "groups must tile the lane width"
+    g = B // nout
+    # the lane-halving reduce would drop lanes for non-pow2 group widths
+    assert g & (g - 1) == 0, f"group width must be a power of two: {g}"
+    p = fb_scalar_mul(table, scalars)
+    p = JacPoint(*(c.reshape(nout, g, L.NLIMBS) for c in p))
+    ops = table.ops
+    w = g
+    while w > 1:
+        w //= 2
+        p = ops.add(JacPoint(*(c[:, :w] for c in p)),
+                    JacPoint(*(c[:, w:2 * w] for c in p)))
+    return JacPoint(*(c[:, 0] for c in p))
+
