@@ -4,19 +4,30 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   `porla_tpu_torch/csrc/` and prints the build seconds.
+   `porla_tpu_torch/csrc/` (six sources, one `nvcc` each, in parallel) and
+   prints the build seconds.
 2. Holds each kernel (K1 ntt_stage, K2 scalar_mul in its windowed and
-   GLV modes, K3 point_butterfly, K4 fixed_base) at the shapes of the
-   main path against its plain torch version on the card (tolerance:
-   exact, bit-identical limbs, so points
-   are the same affine points, infinity included) and against exact
-   Python integers on a few lanes, including edge lanes. Times both with
-   CUDA events (median after a warm-up).
+   GLV modes, K3 point_butterfly, K4 fixed_base, K5 pip_bucket, K6
+   bucket_fold, K7 point_butterfly_window) at the shapes of the paths
+   below against its plain torch version on the card (tolerance: exact,
+   bit-identical limbs or bucket words, so points are the same affine
+   points, infinity included) and against exact Python integers on a few
+   lanes, including edge lanes. Times both with CUDA events (median after
+   a warm-up). K5 and K6 are also held against their plain versions in
+   every mode (affine, Jacobian, first then carry) at 2^14 points.
 3. Runs the IPA protocol at n = 1024 blocks on the card: initialize, an
    audit, 4 updates, another audit (both must verify), then a corrupted
-   codeword that the next audit must reject. Every kernel's launch count
-   must rise during this run.
-4. Prints one JSON line of per-kernel results, the card line again, and
+   codeword that the next audit must reject. K1-K4's launch counts must
+   rise during this run.
+4. Runs the variable-base MSM entry point `curves.kernels.msm` on operands
+   on the card: 2^20 points on secp256k1 and on BN254 G1 and 4096 points
+   (the Pippenger crossover), built as `bench.py` builds them, every run
+   checked against the golden sum; 2^16 distinct points; the streamed form
+   from CPU tensors at 2^20; the reference-C vector (n = 300); `msm_parts`
+   at 4096 stacked lanes; and the public `point_butterfly` at nbits = 64.
+   K5-K7's launch counts must rise during this run. Prints seconds per MSM
+   and points per second, and where one MSM's seconds go.
+5. Prints one JSON line of per-kernel results, the card line again, and
    as its last line {"ok": true, "device": {...}}.
 
 Any failed phase raises, so the script exits nonzero and prints no result.
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import shutil
 import statistics
 import subprocess
@@ -41,6 +53,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_BLOCKS = 1024          # the reference's default workload (Client.cpp)
 N_UPDATES = 4
 SEED = 20261016
+MSM_N = 1 << 20          # the MSM entry point's size of record (bench.py)
+MSM_CHECK_N = 1 << 14    # K5/K6 against their plain versions in every mode
+BLIND_SEED = 77          # fixed blinding for the bucket-state comparisons
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s, and
 # float32 operations/s outside the tensor cores, which stands in for the
@@ -338,6 +353,402 @@ def check_k4(dev, rng, ops, nblocks=N_BLOCKS):
                 max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
 
 
+def state_err(a, b) -> int:
+    """Max absolute difference of two packed bucket states (int32 words)."""
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def check_buckets_golden(ops, pts, digits, blind, state, folded, bt, pairs):
+    """A few (window, lane) pairs of K5's state and K6's output against
+    exact Python ints: bucket s is d_s*G plus the signed sum of the lane's
+    points whose digit selects it; the fold is sum_s s*B_s."""
+    from porla_tpu_torch.curves import cuda_msm as cm
+    from porla_tpu_torch.curves.weierstrass import JacPoint, index
+    from porla_tpu_torch.golden import ecc
+    cv = ops.curve
+    nb = blind.x.shape[0]
+    one = ops.fp.const("r_limbs", blind.x.device).expand_as(blind.x)
+    start = ops.to_affine(JacPoint(blind.x, blind.y, one))
+    for w, lane in pairs:
+        want = list(start)
+        col = digits[w, lane::bt].tolist()
+        for k, v in enumerate(col):
+            slot, neg = v & 255, v >> 8
+            q = pts[k * bt + lane]
+            if slot:
+                want[slot - 1] = ecc.add(cv, want[slot - 1],
+                                         ecc.neg(cv, q) if neg else q)
+        words = state[w:w + 1, :, :, :, lane:lane + 1].contiguous()
+        got = ops.to_affine(JacPoint(*(c.reshape(nb, 16)
+                                       for c in cm.unpack_state(words))))
+        if got != want:
+            raise AssertionError(f"K5: buckets of window {w}, lane {lane} "
+                                 f"differ from exact ints")
+        fold = ops.to_affine(index(folded, (w, slice(lane, lane + 1))))[0]
+        if fold != ecc.msm(cv, want, range(1, nb + 1)):
+            raise AssertionError(f"K6: fold of window {w}, lane {lane} "
+                                 f"differs from exact ints")
+
+
+def check_k5_k6_modes(dev, rng, ops, N=MSM_CHECK_N, c=7, bt=512):
+    """K5 and K6 at N = 2^14 (32 steps), c = 7, bt = 512, with a fixed
+    blinding seed: bit-identical to the plain versions for affine and for
+    Jacobian inputs, and `first` then `carry` over two chunks against one
+    launch over both."""
+    from porla_tpu_torch.curves import cuda_msm as cm
+    from porla_tpu_torch.curves.weierstrass import index
+    from porla_tpu_torch.fields import limbs as L
+    from porla_tpu_torch.golden import ecc
+
+    cv = ops.curve
+    nbits = 256
+    nwin, tight = cm._nwin_for(nbits, c)
+    pts = rand_points(rng, cv, N)
+    pts[5] = ecc.INF                                   # never added
+    k = rand_below(rng, cv.n, N)
+    k[0], k[1], k[2] = 0, cv.n - 1, (1 << 256) - 1
+    sc = L.ints_to_tensor(k, dev)
+    blind = cm.blinding(ops, 1 << (c - 1), BLIND_SEED, dev)
+    out = {}
+    for affine in (True, False):
+        zs = [1] * N if affine else [1 + v for v in
+                                     rand_below(rng, cv.p - 1, N)]
+        P = jacobian(ops, pts, zs, dev)
+        digits = cm.signed_digits(sc, P.z, c, nwin, tight)
+        got = cm.pip_bucket(ops, P, digits, blind, bt, affine)
+        t0 = time.perf_counter()
+        plain = cm.pip_bucket_plain(ops, P, digits, blind, bt, affine)
+        torch.cuda.synchronize(dev)
+        plain_s = time.perf_counter() - t0
+        err = state_err(got, plain)
+        half = N // 2
+        st = cm.pip_bucket(ops, index(P, slice(0, half)),
+                           digits[:, :half].contiguous(), blind, bt, affine)
+        st = cm.pip_bucket(ops, index(P, slice(half, N)),
+                           digits[:, half:].contiguous(), blind, bt, affine,
+                           st)
+        err = max(err, state_err(st, got))
+        folded = cm.bucket_fold(ops, got)
+        t0 = time.perf_counter()
+        fplain = cm.bucket_fold_plain(ops, got)
+        torch.cuda.synchronize(dev)
+        fold_plain_s = time.perf_counter() - t0
+        ferr = limb_err(folded, fplain)
+        if err or ferr:
+            raise AssertionError(f"K5/K6 (affine={affine}): max abs err "
+                                 f"{err} / {ferr} against the plain versions")
+        check_buckets_golden(ops, pts, digits, blind, got, folded, bt,
+                             [(0, 0), (nwin - 1, 1), (17, 5), (3, bt - 1)])
+        ms = timed_ms(lambda: cm.pip_bucket(ops, P, digits, blind, bt,
+                                            affine), dev, 5)
+        fold_ms = timed_ms(lambda: cm.bucket_fold(ops, got), dev, 5)
+        out["affine" if affine else "jacobian"] = dict(
+            pip_bucket_ms=ms, pip_bucket_plain_ms=plain_s * 1e3,
+            bucket_fold_ms=fold_ms, bucket_fold_plain_ms=fold_plain_s * 1e3,
+            max_abs_err=max(err, ferr))
+    return dict(check="pip_bucket+bucket_fold modes",
+                shape=[nwin, N // bt, bt], c=c, **out)
+
+
+def check_k7(dev, rng, ops, B=N_BLOCKS, nbits=64):
+    """K7 at K3's shape (1024 lanes, 2 planes of 512) with 64-bit scalars
+    against its plain version and the golden model on K3's edge lanes; and
+    at nbits = 256 through its launch function: the same affine points as
+    K3."""
+    from porla_tpu_torch.curves import cuda_curve as cc
+    from porla_tpu_torch.curves.weierstrass import index
+    from porla_tpu_torch.fields import limbs as L
+    from porla_tpu_torch.golden import ecc
+
+    cv = ops.curve
+    m1 = rand_points(rng, cv, B)
+    m0 = rand_points(rng, cv, B)
+    k = rand_below(rng, 1 << nbits, B)
+    m1[0] = ecc.INF
+    k[1] = 0
+    m0[2] = ecc.mul(cv, m1[2], k[2])                   # hi doubles, lo = inf
+    m0[3] = ecc.neg(cv, ecc.mul(cv, m1[3], k[3]))
+    m0[4] = ecc.INF
+    k[5] = (1 << nbits) - 1
+    M0 = jacobian(ops, m0, [1 + v for v in rand_below(rng, cv.p - 1, B)], dev)
+    M1 = jacobian(ops, m1, [1 + v for v in rand_below(rng, cv.p - 1, B)], dev)
+    sc = L.ints_to_tensor(k, dev)
+    hi, lo = cc.point_butterfly(ops, M0, M1, sc, nbits)
+    phi, plo = cc.window_butterfly_plain(ops, M0, M1, sc, nbits)
+    lanes = list(range(12))
+    t = [ecc.mul(cv, m1[i], k[i]) for i in lanes]
+    err = max(
+        check_points(ops, "K7 hi", hi, phi, lanes,
+                     [ecc.add(cv, m0[i], ti) for i, ti in zip(lanes, t)]),
+        check_points(ops, "K7 lo", lo, plo, lanes,
+                     [ecc.add(cv, m0[i], ecc.neg(cv, ti))
+                      for i, ti in zip(lanes, t)]))
+    # 256 bits through the launch function: K3's affine points
+    k256 = L.ints_to_tensor(rand_below(rng, cv.n, B), dev)
+    whi, wlo = cc.launch_window_butterfly(ops, M0, M1, k256, 256)
+    ghi, glo = cc.point_butterfly(ops, M0, M1, k256)
+    idx = torch.arange(min(64, B), device=dev)
+    for name, a, b in (("hi", whi, ghi), ("lo", wlo, glo)):
+        if ops.to_affine(index(a, idx)) != ops.to_affine(index(b, idx)):
+            raise AssertionError(f"K7 at 256 bits: {name} differs from K3")
+    ms = timed_ms(lambda: cc.launch_window_butterfly(ops, M0, M1, sc, nbits),
+                  dev, 10)
+    plain_ms = timed_ms(lambda: cc.window_butterfly_plain(ops, M0, M1, sc,
+                                                          nbits), dev, 3)
+    muls = TABLE16 + nbits // 4 * (4 * DBL + ADD) + 2 * ADD
+    b_ms, b_by = bound(B * muls * OPS_PER_FE_MUL,
+                       B * (12 * FE_BYTES + nbits // 8))
+    return dict(name="point_butterfly_window", shape=[B, 16], nbits=nbits,
+                ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+# --- phase 4: the MSM entry point -------------------------------------------
+
+def msm_inputs(ops, n, dev, nbases=8):
+    """Operands as `bench.py` builds them: 8 random bases tiled over n
+    lanes (the golden sum stays O(n) host ints), scalars below the group
+    order from a seed, on `dev`."""
+    from porla_tpu_torch.curves.weierstrass import JacPoint
+    from porla_tpu_torch.fields import limbs as L
+    from porla_tpu_torch.golden import ecc
+    rng = random.Random(7)
+    cv = ops.curve
+    bases = [ecc.mul(cv, cv.g, rng.randrange(1, cv.n)) for _ in range(nbases)]
+    sc = [rng.getrandbits(256) % cv.n for _ in range(n)]
+    ph = ops.from_affine(bases)
+    points = JacPoint(*(c.repeat(n // nbases, 1).to(dev) for c in ph))
+    want = ecc.INF
+    for g in range(nbases):
+        want = ecc.add(cv, want, ecc.mul(cv, bases[g],
+                                         sum(sc[g::nbases]) % cv.n))
+    return points, L.ints_to_tensor(sc, dev), want
+
+
+def msm_stages(dev, ops, points, scalars, nbits, plain: bool):
+    """One MSM taken apart as `cuda_msm.pippenger_msm` runs it, on operands
+    on the card: host-clock seconds per stage (synchronised), K5's and K6's
+    times by CUDA events, their bounds from this run's digits, and with
+    `plain` their plain versions on the same inputs (bit-identical state
+    required). Returns (stage record, K5 row, K6 row, the MSM's point)."""
+    from porla_tpu_torch.curves import cuda_msm as cm
+    N = points.x.shape[0]
+    bt = cm.DEFAULT_BT
+    c = cm.choose_c(N, nbits)
+    nb = 1 << (c - 1)
+    nwin, tight = cm._nwin_for(nbits, c)
+    steps = N // bt
+    blind = cm.blinding(ops, nb, BLIND_SEED, dev)
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    affine = stage("affine_detect", lambda: cm._is_affine(ops, points.z))
+    digits = stage("digits", lambda: cm.signed_digits(
+        scalars, points.z, c, nwin, tight))
+    state = stage("pip_bucket", lambda: cm.pip_bucket(
+        ops, points, digits, blind, bt, affine))
+    folded = stage("bucket_fold", lambda: cm.bucket_fold(ops, state))
+    wins = stage("reduce_lanes", lambda: cm.reduce_lanes(ops, folded))
+    got = stage("host_horner", lambda: cm.horner(
+        ops, ops.to_affine(wins), c, bt, blind.tsum))
+
+    k5_ms = timed_ms(lambda: cm.pip_bucket(ops, points, digits, blind, bt,
+                                           affine), dev, 3)
+    k6_ms = timed_ms(lambda: cm.bucket_fold(ops, state), dev, 5)
+    adds = int(((digits & 255) != 0).sum().item())     # digit 0 adds nowhere
+    state_bytes = nwin * nb * bt * 3 * FE_BYTES
+    k5_b, k5_by = bound(adds * (MADD if affine else ADD) * OPS_PER_FE_MUL,
+                        N * ((2 if affine else 3) * FE_BYTES + nbits // 8)
+                        + nb * 2 * FE_BYTES + state_bytes)
+    k6_b, k6_by = bound(nwin * bt * 2 * (nb - 1) * ADD * OPS_PER_FE_MUL,
+                        state_bytes + nwin * bt * 3 * FE_BYTES)
+    k5 = dict(name="pip_bucket", shape=[nwin, steps, bt], c=c, nbits=nbits,
+              bucket_adds=adds, ms=k5_ms, bound_ms=k5_b, bound_by=k5_by)
+    k6 = dict(name="bucket_fold", shape=[nwin, nb, bt], ms=k6_ms,
+              bound_ms=k6_b, bound_by=k6_by)
+    if plain:
+        t0 = time.perf_counter()
+        pstate = cm.pip_bucket_plain(ops, points, digits, blind, bt, affine)
+        torch.cuda.synchronize(dev)
+        k5["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        k5["max_abs_err"] = state_err(state, pstate)
+        del pstate
+        t0 = time.perf_counter()
+        pfold = cm.bucket_fold_plain(ops, state)
+        torch.cuda.synchronize(dev)
+        k6["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        k6["max_abs_err"] = limb_err(folded, pfold)
+        if k5["max_abs_err"] or k6["max_abs_err"]:
+            raise AssertionError(
+                f"K5/K6 at {N} points: max abs err {k5['max_abs_err']} / "
+                f"{k6['max_abs_err']} against the plain versions")
+    rec = {"msm_stages": {"curve": ops.fp.name, "n": N, "c": c, "nwin": nwin,
+                          "s": stages}}
+    return rec, k5, k6, got
+
+
+def run_msm(dev, kat_path):
+    """The variable-base MSM entry point on the card. Returns (per-run
+    records, launches over the whole phase, K5 row, K6 row)."""
+    from porla_tpu_torch import native
+    from porla_tpu_torch.crypto import testrand
+    from porla_tpu_torch.curves import cuda_curve as cc
+    from porla_tpu_torch.curves import cuda_msm as cm
+    from porla_tpu_torch.curves import kernels
+    from porla_tpu_torch.curves.instances import bn254, secp256k1
+    from porla_tpu_torch.curves.weierstrass import JacPoint
+    from porla_tpu_torch.fields import limbs as L
+    from porla_tpu_torch.golden import ecc
+
+    runs = []
+
+    def run(name, ops, fn, want, n, timed=3):
+        """Warm-up plus `timed` runs through `fn`, each checked against the
+        golden point with an explicit raise; host clock around the call,
+        which ends with the result on the host."""
+        times, per_run = [], []
+        for i in range(1 + timed):
+            before = native.launches()
+            t0 = time.perf_counter()
+            got = fn()
+            dt = time.perf_counter() - t0
+            if ops.to_affine(got)[0] != want:
+                raise RuntimeError(f"MSM mismatch vs golden ({name}, n={n})")
+            if i:
+                times.append(dt)
+            per_run.append({k: v - before[k] for k, v in
+                            native.launches().items() if v - before[k]})
+        t = min(times) if times else dt
+        rec = {"msm": name, "n": n, "s_per_msm": t, "points_per_s": n / t,
+               "runs_s": times, "launches_per_run": per_run[-1]}
+        runs.append(rec)
+        emit(rec)
+        return got
+
+    secp, bn = secp256k1(), bn254()
+    native.reset_launches()
+
+    # the three shapes of record, operands on the card
+    p20, s20, want20 = msm_inputs(secp, MSM_N, dev)
+    nbits = secp.curve.n.bit_length()
+    res20 = run("secp256k1", secp,
+                lambda: kernels.msm(secp, p20, s20, nbits), want20, MSM_N)
+    pb, sb, wantb = msm_inputs(bn, MSM_N, dev)
+    bbits = bn.curve.n.bit_length()
+    run("bn254", bn, lambda: kernels.msm(bn, pb, sb, bbits), wantb, MSM_N)
+    nx = kernels.PIPPENGER_CROSSOVER
+    px, sx, wantx = msm_inputs(secp, nx, dev)
+    run("secp256k1_crossover", secp,
+        lambda: kernels.msm(secp, px, sx, nbits), wantx, nx)
+
+    # the streamed form from CPU tensors (8 chunks) equals the resident run
+    p20h = JacPoint(*(c.cpu() for c in p20))
+    s20h = s20.cpu()
+    streamed = run("secp256k1_streamed", secp,
+                   lambda: cm.pippenger_msm(secp, p20h, s20h, nbits,
+                                            device=dev),
+                   want20, MSM_N, timed=1)
+    if limb_err(streamed, res20):
+        raise AssertionError("streamed MSM differs from the resident run")
+    if runs[-1]["launches_per_run"].get("pip_bucket") != 8:
+        raise AssertionError("the streamed run did not take 8 chunks")
+    del p20h, s20h
+
+    # distinct points (i+1)*G by host chain adds; golden (sum k_i (i+1))*G
+    cv = secp.curve
+    nd = 1 << 16
+    chain, q = [], cv.g
+    for _ in range(nd):
+        chain.append(q)
+        q = ecc.add(cv, q, cv.g)
+    rng = random.Random(11)
+    kd = [rng.getrandbits(256) % cv.n for _ in range(nd)]
+    pd, sd = secp.from_affine(chain, dev), L.ints_to_tensor(kd, dev)
+    wantd = ecc.mul(cv, cv.g, sum(k * (i + 1) for i, k in enumerate(kd)))
+    run("secp256k1_distinct", secp,
+        lambda: kernels.msm(secp, pd, sd, nbits), wantd, nd, timed=1)
+
+    # libsecp256k1's own result for n = 300, 64-bit scalars
+    with open(kat_path) as f:
+        case = json.load(f)["ecmult_multi"][1]
+    gens = testrand.derive_ipa_generators(128)[0]
+    nk = case["n"]
+    pk = secp.from_affine([gens[i % 128] for i in range(nk)], dev)
+    sk = L.ints_to_tensor([((i + 1) * 0x9E3779B97F4A7C15) & ((1 << 64) - 1)
+                           for i in range(nk)], dev)
+    run("secp256k1_reference_c_vector", secp,
+        lambda: cm.pippenger_msm(secp, pk, sk, nbits=64),
+        (int(case["result"][0], 16), int(case["result"][1], 16)), nk,
+        timed=1)
+
+    # K7 through the public butterfly (64-bit scalars)
+    kb = L.ints_to_tensor([rng.getrandbits(64) for _ in range(nk)], dev)
+    cc.point_butterfly(secp, pk, pk, kb, nbits=64)
+    torch.cuda.synchronize(dev)
+    total = native.launches()
+
+    # where one MSM's seconds go, and K5 / K6 at the shapes of record; on
+    # secp256k1 also their plain versions at that shape
+    rec, k5, k6, got = msm_stages(dev, secp, p20, s20, nbits, plain=True)
+    if got != want20:
+        raise RuntimeError("staged MSM mismatch vs golden (secp256k1)")
+    emit(rec)
+    emit({"check": "pip_bucket secp256k1", **k5})
+    emit({"check": "bucket_fold secp256k1", **k6})
+    recb, k5b, k6b, got = msm_stages(dev, bn, pb, sb, bbits, plain=False)
+    if got != wantb:
+        raise RuntimeError("staged MSM mismatch vs golden (bn254)")
+    emit(recb)
+    emit({"check": "pip_bucket bn254", **k5b})
+    emit({"check": "bucket_fold bn254", **k6b})
+    return runs, total, k5, k6
+
+
+def check_msm_parts(dev, ops):
+    """The server's stacked audit route above the old limit: 4096 stacked
+    lanes at nbits = 32 (two parts of 2048, some lanes at infinity with
+    scalar 0) equal the plain version and the golden sums."""
+    from porla_tpu_torch.curves import kernels
+    from porla_tpu_torch.curves.weierstrass import JacPoint, index
+    from porla_tpu_torch.fields import limbs as L
+    from porla_tpu_torch.golden import ecc
+    cv = ops.curve
+    n, nbases = 4096, 8
+    rng = random.Random(13)
+    bases = [ecc.mul(cv, cv.g, rng.randrange(1, cv.n)) for _ in range(nbases)]
+    sc = [rng.getrandbits(32) for _ in range(n)]
+    ph = ops.from_affine(bases)
+    x, y, z = (c.repeat(n // nbases, 1) for c in ph)
+    for i in (0, 7, 2047, 2048, 4095):
+        z[i] = 0
+        sc[i] = 0
+    P = JacPoint(x.to(dev), y.to(dev), z.to(dev))
+    S = L.ints_to_tensor(sc, dev)
+    got = kernels.msm_parts(ops, P, S, 2, nbits=32)
+    plain = ops.scalar_mul(P, S, 32)
+    for h, part in enumerate(got):
+        lanes = range(h * n // 2, (h + 1) * n // 2)
+        want = ecc.INF
+        for g in range(nbases):
+            want = ecc.add(cv, want, ecc.mul(
+                cv, bases[g], sum(sc[i] for i in lanes if i % nbases == g)))
+        psum = ops.tree_sum(index(plain, slice(lanes.start, lanes.stop)))
+        if limb_err(part, psum):
+            raise AssertionError(f"msm_parts: part {h} differs from the "
+                                 f"plain version")
+        if ops.to_affine(part)[0] != want:
+            raise AssertionError(f"msm_parts: part {h} differs from the "
+                                 f"golden sum")
+    return {"check": "msm_parts", "lanes": n, "nbits": 32, "parts": 2}
+
+
 # --- phase 3: the protocol --------------------------------------------------
 
 def run_protocol(dev, store_dir, n=N_BLOCKS, n_updates=N_UPDATES):
@@ -453,7 +864,13 @@ def main() -> int:
     k4 = check_k4(dev, rng, ops)
     emit(dict(check="fixed_base", launches=native.launches()["fixed_base"],
               **{k: v for k, v in k4.items() if k != "name"}))
+    emit(check_k5_k6_modes(dev, rng, ops))
+    k7 = check_k7(dev, rng, ops)
+    emit(dict(check="point_butterfly_window",
+              **{k: v for k, v in k7.items() if k != "name"}))
 
+    # each path is driven with the counts set to 0 just before it and read
+    # just after; a kernel must be launched by the path that owns it
     store = os.path.join(HERE, "porla_store_chip_smoke")
     shutil.rmtree(store, ignore_errors=True)
     trace.reset()
@@ -468,22 +885,36 @@ def main() -> int:
     for line in trace.report().splitlines():
         if "count" not in line and "gauge" not in line:
             print("trace", line, flush=True)
-    missing = [k for k, v in total.items() if v == 0]
+    protocol_kernels = ("ntt_stage", "scalar_mul_window", "scalar_mul_glv",
+                        "point_butterfly", "fixed_base")
+    msm_kernels = ("pip_bucket", "bucket_fold", "point_butterfly_window")
+    missing = [k for k in protocol_kernels if total[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the protocol run: "
                              f"{missing}")
 
+    msm_runs, msm_total, k5, k6 = run_msm(
+        dev, os.path.join(HERE, "tests", "vectors", "secp256k1_kat.json"))
+    emit({"phase": "run_msm", "launches": msm_total})
+    missing = [k for k in msm_kernels if msm_total[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the MSM run: "
+                             f"{missing}")
+    emit(check_msm_parts(dev, ops))
+
     rows = []
-    for r in (k1, *k2, k3, k4):
+    for r in (k1, *k2, k3, k4, k5, k6, k7):
         name = r["name"]
         k = native.KERNELS[name]
         per_phase = {}
         for rec in phases:
             per_phase.setdefault(rec["phase"], []).append(
                 rec["launches"][name])
+        per_phase["run_msm"] = [msm_total[name]]
         rows.append({
             "name": name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": total[name],
+            "replaces": k.replaces,
+            "launches": total[name] + msm_total[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

@@ -1,6 +1,6 @@
 // Shared device functions of the port's Hopper kernels: 256-bit Montgomery
 // field arithmetic over 8 x 32-bit words and branchless Jacobian point ops
-// for a = 0 short-Weierstrass curves (secp256k1).
+// for a = 0 short-Weierstrass curves (secp256k1, BN254 G1).
 //
 // Replaces the in-kernel helpers of the TPU kernels
 // (porla_tpu/curves/pallas_curve.py: _f_mul, _p_dbl, _p_add, _p_madd,
@@ -256,51 +256,84 @@ PORLA_PT Pt pt_cases(const Pt& raw, const Pt& p1, const Pt& p2,
   return out;
 }
 
-// add-2007-bl with every case handled (infinity on either side, P == Q,
-// P == -Q)
-PORLA_PT Pt pt_add(const Pt& p1, const Pt& p2, const Mod& M) {
+// The products of an addition, shared by its raw and its full-cased form.
+struct AddTerms {
+  Fe U1, U2, S1, S2;
+};
+
+// add-2007-bl without any case handling (12M + 4S): wrong where either side
+// is infinity or P == +-Q
+PORLA_HD Pt add_core(const Pt& p1, const Pt& p2, AddTerms& t, const Mod& M) {
   Fe Z1Z1 = fe_mul(p1.z, p1.z, M);
   Fe Z2Z2 = fe_mul(p2.z, p2.z, M);
   Fe A1 = fe_mul(p1.y, p2.z, M);
   Fe A2 = fe_mul(p2.y, p1.z, M);
-  Fe U1 = fe_mul(p1.x, Z2Z2, M);
-  Fe U2 = fe_mul(p2.x, Z1Z1, M);
-  Fe S1 = fe_mul(A1, Z2Z2, M);
-  Fe S2 = fe_mul(A2, Z1Z1, M);
-  Fe H = fe_sub(U2, U1, M);
-  Fe R = fe_sub(S2, S1, M);
+  t.U1 = fe_mul(p1.x, Z2Z2, M);
+  t.U2 = fe_mul(p2.x, Z1Z1, M);
+  t.S1 = fe_mul(A1, Z2Z2, M);
+  t.S2 = fe_mul(A2, Z1Z1, M);
+  Fe H = fe_sub(t.U2, t.U1, M);
+  Fe R = fe_sub(t.S2, t.S1, M);
   Fe HH = fe_mul(H, H, M);
   Fe RR = fe_mul(R, R, M);
   Fe Z1Z2 = fe_mul(p1.z, p2.z, M);
   Fe HHH = fe_mul(H, HH, M);
-  Fe V = fe_mul(U1, HH, M);
+  Fe V = fe_mul(t.U1, HH, M);
   Pt raw;
   raw.z = fe_mul(Z1Z2, H, M);
   raw.x = fe_sub(fe_sub(RR, HHH, M), fe_add(V, V, M), M);
-  raw.y = fe_sub(fe_mul(R, fe_sub(V, raw.x, M), M), fe_mul(S1, HHH, M), M);
-  return pt_cases(raw, p1, p2, U1, U2, S1, S2, M);
+  raw.y = fe_sub(fe_mul(R, fe_sub(V, raw.x, M), M), fe_mul(t.S1, HHH, M), M);
+  return raw;
 }
 
-// Mixed add: p2 affine or infinity (Z2 in {0, R}), so the products by Z2
-// collapse to identities — 11 field products instead of 16.
-PORLA_PT Pt pt_madd(const Pt& p1, const Pt& p2, const Mod& M) {
+// Mixed add without case handling (8M + 3S): p2 is affine (its z is not
+// read), so the products by Z2 collapse to identities
+PORLA_HD Pt madd_core(const Pt& p1, const Pt& p2, AddTerms& t, const Mod& M) {
   Fe Z1Z1 = fe_mul(p1.z, p1.z, M);
   Fe A2 = fe_mul(p2.y, p1.z, M);
-  Fe U2 = fe_mul(p2.x, Z1Z1, M);
-  Fe S2 = fe_mul(A2, Z1Z1, M);
-  const Fe& U1 = p1.x;
-  const Fe& S1 = p1.y;
-  Fe H = fe_sub(U2, U1, M);
-  Fe R = fe_sub(S2, S1, M);
+  t.U1 = p1.x;
+  t.S1 = p1.y;
+  t.U2 = fe_mul(p2.x, Z1Z1, M);
+  t.S2 = fe_mul(A2, Z1Z1, M);
+  Fe H = fe_sub(t.U2, t.U1, M);
+  Fe R = fe_sub(t.S2, t.S1, M);
   Fe HH = fe_mul(H, H, M);
   Fe RR = fe_mul(R, R, M);
   Fe HHH = fe_mul(H, HH, M);
-  Fe V = fe_mul(U1, HH, M);
+  Fe V = fe_mul(t.U1, HH, M);
   Pt raw;
   raw.z = fe_mul(p1.z, H, M);
   raw.x = fe_sub(fe_sub(RR, HHH, M), fe_add(V, V, M), M);
-  raw.y = fe_sub(fe_mul(R, fe_sub(V, raw.x, M), M), fe_mul(S1, HHH, M), M);
-  return pt_cases(raw, p1, p2, U1, U2, S1, S2, M);
+  raw.y = fe_sub(fe_mul(R, fe_sub(V, raw.x, M), M), fe_mul(t.S1, HHH, M), M);
+  return raw;
+}
+
+// The raw adds of the bucket kernels: the caller guarantees that neither
+// operand is infinity and that P != +-Q (blinded buckets)
+PORLA_PT Pt pt_add_raw(const Pt& p1, const Pt& p2, const Mod& M) {
+  AddTerms t;
+  return add_core(p1, p2, t, M);
+}
+
+PORLA_PT Pt pt_madd_raw(const Pt& p1, const Pt& p2, const Mod& M) {
+  AddTerms t;
+  return madd_core(p1, p2, t, M);
+}
+
+// add-2007-bl with every case handled (infinity on either side, P == Q,
+// P == -Q)
+PORLA_PT Pt pt_add(const Pt& p1, const Pt& p2, const Mod& M) {
+  AddTerms t;
+  Pt raw = add_core(p1, p2, t, M);
+  return pt_cases(raw, p1, p2, t.U1, t.U2, t.S1, t.S2, M);
+}
+
+// Mixed add with every case handled: p2 affine or infinity (Z2 in {0, R}),
+// 11 field products instead of 16
+PORLA_PT Pt pt_madd(const Pt& p1, const Pt& p2, const Mod& M) {
+  AddTerms t;
+  Pt raw = madd_core(p1, p2, t, M);
+  return pt_cases(raw, p1, p2, t.U1, t.U2, t.S1, t.S2, M);
 }
 
 // T[d] = d*P for d in 0..15 (T[0] = infinity)
@@ -325,6 +358,41 @@ PORLA_HD void pt_store(int64_t* x, int64_t* y, int64_t* z, int64_t i,
   fe_store(x + 16 * i, p.x);
   fe_store(y + 16 * i, p.y);
   fe_store(z + 16 * i, p.z);
+}
+
+// Field elements held as 8 x 32-bit words `stride` words apart (the bucket
+// state of the MSM kernels: the lane is the fastest axis, so a warp's loads
+// of one word are contiguous)
+PORLA_HD Fe fe_load_words(const uint32_t* p, int64_t stride) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; i++) r.w[i] = p[i * stride];
+  return r;
+}
+
+PORLA_HD void fe_store_words(uint32_t* p, int64_t stride, const Fe& a) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) p[i * stride] = a.w[i];
+}
+
+// Bucket (window w, slot s) of lane `lane` in a (nwin, nb, 3, 8, bt) state
+PORLA_HD int64_t bucket_offset(int64_t w, int64_t s, int nb, int bt,
+                               int lane) {
+  return ((w * nb + s) * 24) * bt + lane;
+}
+
+PORLA_HD Pt bucket_load(const uint32_t* st, int64_t off, int bt) {
+  Pt r;
+  r.x = fe_load_words(st + off, bt);
+  r.y = fe_load_words(st + off + 8 * (int64_t)bt, bt);
+  r.z = fe_load_words(st + off + 16 * (int64_t)bt, bt);
+  return r;
+}
+
+PORLA_HD void bucket_store(uint32_t* st, int64_t off, int bt, const Pt& p) {
+  fe_store_words(st + off, bt, p.x);
+  fe_store_words(st + off + 8 * (int64_t)bt, bt, p.y);
+  fe_store_words(st + off + 16 * (int64_t)bt, bt, p.z);
 }
 
 // 4-bit window w (LSB first) of a scalar held as 16 int64 16-bit limbs

@@ -1,4 +1,4 @@
-"""Batched elliptic-curve kernels on the card: K2 `scalar_mul`, K3
+"""Batched elliptic-curve kernels on the card: K2 `scalar_mul`, K3/K7
 `point_butterfly` and K4 `fixed_base`.
 
 Counterpart of `porla_tpu/curves/pallas_curve.py`. Each public function
@@ -12,8 +12,9 @@ kernel or raises.
   MSMs run at nbits = 32) and GLV mode for nbits = 256, with the scalar
   split done on the host (`curves/glv.py`); each mode has its own launch
   count.
-- K3 (`csrc/point_butterfly.cu`): (m0 + s*m1, m0 - s*m1) with the GLV
-  scalar mul, 256-bit scalars only.
+- K3 and K7 (`csrc/point_butterfly.cu`): (m0 + s*m1, m0 - s*m1) with the
+  GLV scalar mul for 256-bit scalars (K3) and the windowed scalar mul for
+  every other width (K7, `point_butterfly_window`), counted apart.
 - K4 (`csrc/fixed_base.cu`): scalar_i * G_(i mod ng) from per-window
   affine tables; `fb_msm_groups` sums lane groups afterwards in plain
   torch.
@@ -159,7 +160,7 @@ def launch_scalar_mul_glv(ops: CurveOps, p: JacPoint, g: GlvScalars):
     return out
 
 
-# --- K3 point_butterfly -----------------------------------------------------
+# --- K3 point_butterfly, K7 point_butterfly_window ---------------------------
 
 def glv_butterfly_plain(ops: CurveOps, m0: JacPoint, m1: JacPoint,
                         g: GlvScalars):
@@ -172,23 +173,33 @@ def point_butterfly_plain(ops: CurveOps, m0: JacPoint, m1: JacPoint, scalars):
     return glv_butterfly_plain(ops, m0, m1, GlvScalars(ops, scalars))
 
 
+def window_butterfly_plain(ops: CurveOps, m0: JacPoint, m1: JacPoint,
+                           scalars, nbits: int):
+    """The plain version of K7: s*m1 by the windowed scalar mul over the
+    low nbits, then both full-cased adds."""
+    t = ops.scalar_mul(m1, scalars, nbits)
+    return ops.add(m0, t), ops.add(m0, ops.neg(t))
+
+
 def point_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
                     scalars: torch.Tensor, nbits: int = 256):
     """(m0 + s*m1, m0 - s*m1) per lane — the MAC-mirror butterfly
-    (reference Server.hpp:1592-1609) as one kernel. 256-bit scalars (the
-    GLV body, split on the host); other widths are not ported."""
+    (reference Server.hpp:1592-1609) as one kernel: K3 (the GLV body, split
+    on the host) for 256-bit scalars, K7 (the windowed body over the low
+    nbits) for every other width."""
     B = m0.x.shape[0]
     _check_points(m0, B)
     _check_points(m1, B)
-    if scalars.shape != (B, L.NLIMBS):
-        raise ValueError(f"scalars {tuple(scalars.shape)}, expected ({B}, 16)")
-    if nbits != 256:
-        raise NotImplementedError("point_butterfly ports the GLV kernel "
-                                  "only (nbits = 256)")
+    if scalars.shape != (B, L.NLIMBS) or nbits % 4 or not 0 < nbits <= 256:
+        raise ValueError(f"scalars {tuple(scalars.shape)} / nbits {nbits}")
     if m0.x.device.type == "cpu":
-        return point_butterfly_plain(ops, m0, m1, scalars)
+        if nbits == 256:
+            return point_butterfly_plain(ops, m0, m1, scalars)
+        return window_butterfly_plain(ops, m0, m1, scalars, nbits)
     native.require(m0.x.device, *m0, *m1, scalars)
-    return launch_point_butterfly(ops, m0, m1, GlvScalars(ops, scalars))
+    if nbits == 256:
+        return launch_point_butterfly(ops, m0, m1, GlvScalars(ops, scalars))
+    return launch_window_butterfly(ops, m0, m1, scalars, nbits)
 
 
 def launch_point_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
@@ -207,6 +218,25 @@ def launch_point_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
         *map(native.ptr, lo), B, native.mod_words(ops.fp), native.stream(dev))
     native.KERNELS["point_butterfly"].launches += 1
     native.check(rc, "point_butterfly")
+    return hi, lo
+
+
+def launch_window_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
+                            scalars, nbits: int):
+    """K7 on checked CUDA operands, at any nbits that is a multiple of 4
+    up to 256 (256 is reached only from here, never from
+    `point_butterfly`)."""
+    B = m0.x.shape[0]
+    dev = m0.x.device
+    lib = native.library()
+    hi = _empty_points(m0.x)
+    lo = _empty_points(m0.x)
+    rc = lib.porla_point_butterfly_window(
+        *map(native.ptr, m0), *map(native.ptr, m1), native.ptr(scalars),
+        nbits, *map(native.ptr, hi), *map(native.ptr, lo), B,
+        native.mod_words(ops.fp), native.stream(dev))
+    native.KERNELS["point_butterfly_window"].launches += 1
+    native.check(rc, "point_butterfly_window")
     return hi, lo
 
 

@@ -146,12 +146,11 @@ class CurveOps:
         Z3 = self._dbl_f(YZ)
         return JacPoint(X3, Y3, Z3)
 
-    def add(self, p1: JacPoint, p2: JacPoint) -> JacPoint:
-        """General Jacobian addition (add-2007-bl) with branchless handling
-        of infinity / doubling / inverse-pair cases."""
-        X1, Y1, Z1, X2, Y2, Z2 = torch.broadcast_tensors(*p1, *p2)
-        p1 = JacPoint(X1, Y1, Z1)
-        p2 = JacPoint(X2, Y2, Z2)
+    def _add_terms(self, p1: JacPoint, p2: JacPoint):
+        """add-2007-bl (12M + 4S) without case handling -> (raw sum,
+        (U1, U2, S1, S2)), independent multiplies stacked into one call."""
+        X1, Y1, Z1 = p1
+        X2, Y2, Z2 = p2
         s1 = self._mul(torch.stack([Z1, Z2, Y1, Y2]),
                        torch.stack([Z1, Z2, Z2, Z1]))
         Z1Z1, Z2Z2, A1, A2 = s1[0], s1[1], s1[2], s1[3]
@@ -168,16 +167,13 @@ class CurveOps:
         s5 = self._mul(torch.stack([R, S1]),
                        torch.stack([self._sub(V, X3), HHH]))
         Y3 = self._sub(s5[0], s5[1])
-        raw = JacPoint(X3, Y3, Z3)
-        return self._cases(raw, p1, p2, U1, U2, S1, S2)
+        return JacPoint(X3, Y3, Z3), (U1, U2, S1, S2)
 
-    def madd(self, p1: JacPoint, p2: JacPoint) -> JacPoint:
-        """Mixed add: p2 is affine-or-infinity (Z2 in {0, R}), so the
-        products by Z2 collapse to identities — 11 field muls instead of
-        16, same branchless case handling as `add` (the Pallas `_p_madd`)."""
-        X1, Y1, Z1, X2, Y2, Z2 = torch.broadcast_tensors(*p1, *p2)
-        p1 = JacPoint(X1, Y1, Z1)
-        p2 = JacPoint(X2, Y2, Z2)
+    def _madd_terms(self, p1: JacPoint, p2: JacPoint):
+        """Mixed add (8M + 3S) without case handling: p2 is affine (Z2 = R,
+        never read), so the products by Z2 collapse to identities."""
+        X1, Y1, Z1 = p1
+        X2, Y2 = p2.x, p2.y
         Z1Z1 = self._mul(Z1, Z1)
         s1 = self._mul(torch.stack([Y2, X2]), torch.stack([Z1, Z1Z1]))
         A2, U2 = s1[0], s1[1]
@@ -193,8 +189,32 @@ class CurveOps:
         s4 = self._mul(torch.stack([R, S1]),
                        torch.stack([self._sub(V, X3), HHH]))
         Y3 = self._sub(s4[0], s4[1])
-        raw = JacPoint(X3, Y3, Z3)
-        return self._cases(raw, p1, p2, U1, U2, S1, S2)
+        return JacPoint(X3, Y3, Z3), (U1, U2, S1, S2)
+
+    def add_raw(self, p1: JacPoint, p2: JacPoint) -> JacPoint:
+        """Raw Jacobian addition for the bucket kernels. The caller
+        guarantees that neither operand is infinity and that P != +-Q
+        (blinded buckets); any such lane gives a wrong point."""
+        return self._add_terms(*_broadcast(p1, p2))[0]
+
+    def madd_raw(self, p1: JacPoint, p2: JacPoint) -> JacPoint:
+        """Raw mixed addition, p2 affine; same contract as `add_raw`."""
+        return self._madd_terms(*_broadcast(p1, p2))[0]
+
+    def add(self, p1: JacPoint, p2: JacPoint) -> JacPoint:
+        """General Jacobian addition (add-2007-bl) with branchless handling
+        of infinity / doubling / inverse-pair cases."""
+        p1, p2 = _broadcast(p1, p2)
+        raw, terms = self._add_terms(p1, p2)
+        return self._cases(raw, p1, p2, *terms)
+
+    def madd(self, p1: JacPoint, p2: JacPoint) -> JacPoint:
+        """Mixed add: p2 is affine-or-infinity (Z2 in {0, R}) — 11 field
+        muls instead of 16, same branchless case handling as `add` (the
+        Pallas `_p_madd`)."""
+        p1, p2 = _broadcast(p1, p2)
+        raw, terms = self._madd_terms(p1, p2)
+        return self._cases(raw, p1, p2, *terms)
 
     def _cases(self, raw, p1, p2, U1, U2, S1, S2) -> JacPoint:
         """Resolve the degenerate cases of an addition with selects: the
@@ -252,6 +272,11 @@ class CurveOps:
                 p = s
                 n = half
         return index(p, slice(0, 1))
+
+
+def _broadcast(p1: JacPoint, p2: JacPoint):
+    c = torch.broadcast_tensors(*p1, *p2)
+    return JacPoint(*c[:3]), JacPoint(*c[3:])
 
 
 def lookup(tbl: JacPoint, digit) -> JacPoint:

@@ -28,7 +28,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("ntt_stage.cu", "scalar_mul.cu", "point_butterfly.cu",
-           "fixed_base.cu")
+           "fixed_base.cu", "pip_bucket.cu", "bucket_fold.cu")
 HEADERS = ("porla_field.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -61,6 +61,16 @@ KERNELS = {
     "fixed_base": Kernel(
         "fixed_base", "porla_tpu_torch/csrc/fixed_base.cu",
         "porla_tpu/curves/pallas_curve.py:602"),
+    "pip_bucket": Kernel(
+        "pip_bucket", "porla_tpu_torch/csrc/pip_bucket.cu",
+        "porla_tpu/curves/pallas_msm.py:85"),
+    "bucket_fold": Kernel(
+        "bucket_fold", "porla_tpu_torch/csrc/bucket_fold.cu",
+        "porla_tpu/curves/pallas_msm.py:215"),
+    # K3's windowed mode: one template with K3, counted apart
+    "point_butterfly_window": Kernel(
+        "point_butterfly_window", "porla_tpu_torch/csrc/point_butterfly.cu",
+        "porla_tpu/curves/pallas_curve.py:645"),
 }
 
 
@@ -85,7 +95,11 @@ _SIGNATURES = {
     "porla_scalar_mul_glv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I64, _P, _P],
     "porla_point_butterfly": [_P] * 17 + [_I64, _P, _P],
+    "porla_point_butterfly_window": [_P] * 7 + [_I32] + [_P] * 6
+                                    + [_I64, _P, _P],
     "porla_fixed_base": [_P] * 7 + [_I64, _I32, _I32, _P, _P],
+    "porla_pip_bucket": [_P] * 7 + [_I32] * 6 + [_P, _P],
+    "porla_bucket_fold": [_P] * 4 + [_I32] * 3 + [_P, _P],
 }
 
 

@@ -97,9 +97,9 @@ def test_point_butterfly_vs_golden():
     assert ops.to_affine(lo) == [ecc.add(CUR, a, ecc.neg(CUR, t))
                                  for a, t in zip(m0, prods)]
     assert ops.to_affine(hi)[7] is ecc.INF
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):          # not a multiple of 4
         cc.point_butterfly(ops, ops.from_affine(m0), ops.from_affine(m1),
-                           L.ints_to_tensor(sc), nbits=128)
+                           L.ints_to_tensor(sc), nbits=130)
 
 
 def test_fixed_base_table_matches_reference():
