@@ -14,7 +14,11 @@
    points, infinity included) and against exact Python integers on a few
    lanes, including edge lanes. Times both with CUDA events (median after
    a warm-up). K5 and K6 are also held against their plain versions in
-   every mode (affine, Jacobian, first then carry) at 2^14 points.
+   every mode (affine, Jacobian, first then carry) at 2^14 points with
+   runs of the same digit in consecutive steps of a lane; K6 means both
+   `bucket_fold` (per lane) and `fold_windows` (with the lane sum), also
+   on a constructed state whose lane sum meets P + P, P + (-P) and
+   infinity.
 3. Runs the IPA protocol at n = 1024 blocks on the card: initialize, an
    audit, 4 updates, another audit (both must verify), then a corrupted
    codeword that the next audit must reject. K1-K4's launch counts must
@@ -25,8 +29,13 @@
    checked against the golden sum; 2^16 distinct points; the streamed form
    from CPU tensors at 2^20; the reference-C vector (n = 300); `msm_parts`
    at 4096 stacked lanes; and the public `point_butterfly` at nbits = 64.
-   K5-K7's launch counts must rise during this run. Prints seconds per MSM
-   and points per second, and where one MSM's seconds go.
+   K5-K7's launch counts must rise during this run. One MSM must take
+   exactly one K5 launch and K6's two (the fold, then the lane sum) and no
+   plain torch point arithmetic. Prints seconds per MSM and points per
+   second, and where one MSM's seconds go (at 2^20 on both curves and at
+   4096), with K6 held against its plain version at each of those shapes;
+   then K5's, K6's and the packing's milliseconds at 512, 1024 and 2048
+   lanes on both curves, each width's MSM checked against the golden sum.
 5. Prints one JSON line of per-kernel results, the card line again, and
    as its last line {"ok": true, "device": {...}}.
 
@@ -378,7 +387,7 @@ def check_buckets_golden(ops, pts, digits, blind, state, folded, bt, pairs):
             if slot:
                 want[slot - 1] = ecc.add(cv, want[slot - 1],
                                          ecc.neg(cv, q) if neg else q)
-        words = state[w:w + 1, :, :, :, lane:lane + 1].contiguous()
+        words = state[w:w + 1, :, lane:lane + 1]
         got = ops.to_affine(JacPoint(*(c.reshape(nb, 16)
                                        for c in cm.unpack_state(words))))
         if got != want:
@@ -390,23 +399,92 @@ def check_buckets_golden(ops, pts, digits, blind, state, folded, bt, pairs):
                                  f"differs from exact ints")
 
 
-def check_k5_k6_modes(dev, rng, ops, N=MSM_CHECK_N, c=7, bt=512):
-    """K5 and K6 at N = 2^14 (32 steps), c = 7, bt = 512, with a fixed
-    blinding seed: bit-identical to the plain versions for affine and for
-    Jacobian inputs, and `first` then `carry` over two chunks against one
-    launch over both."""
+def collision_state(ops, state):
+    """A bucket state whose lane sum meets every case of the full add: lane
+    bt/2 holds lane 0's buckets (P + P at the first level), lane bt/2 + 1 the
+    negation of lane 1's (P + (-P) there, and infinity on one side one level
+    deeper)."""
+    from porla_tpu_torch.curves import cuda_msm as cm
+    from porla_tpu_torch.curves.weierstrass import JacPoint
+    from porla_tpu_torch.fields import mont
+    h = state.shape[2] // 2
+    out = state.clone()
+    out[:, :, h] = state[:, :, 0]
+    b = cm.unpack_state(state[:, :, 1:2])
+    neg = cm.pack_state(JacPoint(b.x, mont.neg_mod(b.y, ops.fp), b.z))
+    out[:, :, h + 1] = neg[:, :, 0]
+    return out
+
+
+def check_fold(ops, state, golden_windows=()):
+    """K6 on `state` against its plain version, limb for limb: `bucket_fold`
+    (the per-lane fold) against `bucket_fold_plain`, `fold_windows` against
+    `reduce_lanes` of that; and the listed windows' totals against the sum
+    of the lanes' folds in exact Python ints. Returns (max abs err, plain
+    seconds, window totals)."""
+    from porla_tpu_torch.curves import cuda_msm as cm
+    from porla_tpu_torch.curves.weierstrass import index
+    from porla_tpu_torch.golden import ecc
+    dev = state.device
+    lanes = cm.bucket_fold(ops, state)
+    wins = cm.fold_windows(ops, state)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    plain_lanes = cm.bucket_fold_plain(ops, state)
+    plain_wins = cm.reduce_lanes(ops, plain_lanes)
+    torch.cuda.synchronize(dev)
+    plain_s = time.perf_counter() - t0
+    err = max(limb_err(lanes, plain_lanes), limb_err(wins, plain_wins))
+    if err:
+        raise AssertionError(f"K6 at {tuple(state.shape)}: max abs err {err} "
+                             f"against the plain version")
+    for w in golden_windows:
+        want = ecc.INF
+        for q in ops.to_affine(index(plain_lanes, w)):
+            want = ecc.add(ops.curve, want, q)
+        if ops.to_affine(index(wins, slice(w, w + 1)))[0] != want:
+            raise AssertionError(f"K6: total of window {w} differs from "
+                                 f"exact ints")
+    return err, plain_s, wins
+
+
+def check_fold_collisions(ops, state):
+    """K6 on the constructed collision state of `state`."""
+    from porla_tpu_torch.curves import cuda_msm as cm
+    from porla_tpu_torch.curves.weierstrass import index
+    from porla_tpu_torch.golden import ecc
+    cstate = collision_state(ops, state)
+    h = state.shape[2] // 2
+    fold = cm.bucket_fold_plain(ops, cstate)
+    pair = ops.to_affine(index(fold, (0, [0, h, 1, h + 1])))
+    if pair[0] != pair[1] or pair[2] != ecc.neg(ops.curve, pair[3]):
+        raise AssertionError("the collision state does not collide")
+    err, _, _ = check_fold(ops, cstate, golden_windows=(0,))
+    return err
+
+
+def check_k5_k6_modes(dev, rng, ops, N=MSM_CHECK_N, c=7):
+    """K5 and K6 at N = 2^14, c = 7 and the default lane width, with a
+    fixed blinding seed: bit-identical to the plain versions for affine and
+    for Jacobian inputs, and `first` then `carry` over two chunks against
+    one launch over both. Lanes 0-3 carry the same scalar in every step, so
+    consecutive steps select the same bucket there (lanes 1 and 2 with
+    negative digits): the case in which a bucket loaded ahead is stale."""
     from porla_tpu_torch.curves import cuda_msm as cm
     from porla_tpu_torch.curves.weierstrass import index
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.golden import ecc
 
     cv = ops.curve
+    bt = cm.DEFAULT_BT
     nbits = 256
     nwin, tight = cm._nwin_for(nbits, c)
     pts = rand_points(rng, cv, N)
     pts[5] = ecc.INF                                   # never added
     k = rand_below(rng, cv.n, N)
     k[0], k[1], k[2] = 0, cv.n - 1, (1 << 256) - 1
+    for lane in range(4):
+        k[lane::bt] = [k[lane]] * (N // bt)
     sc = L.ints_to_tensor(k, dev)
     blind = cm.blinding(ops, 1 << (c - 1), BLIND_SEED, dev)
     out = {}
@@ -428,23 +506,21 @@ def check_k5_k6_modes(dev, rng, ops, N=MSM_CHECK_N, c=7, bt=512):
                            digits[:, half:].contiguous(), blind, bt, affine,
                            st)
         err = max(err, state_err(st, got))
-        folded = cm.bucket_fold(ops, got)
-        t0 = time.perf_counter()
-        fplain = cm.bucket_fold_plain(ops, got)
-        torch.cuda.synchronize(dev)
-        fold_plain_s = time.perf_counter() - t0
-        ferr = limb_err(folded, fplain)
-        if err or ferr:
-            raise AssertionError(f"K5/K6 (affine={affine}): max abs err "
-                                 f"{err} / {ferr} against the plain versions")
-        check_buckets_golden(ops, pts, digits, blind, got, folded, bt,
-                             [(0, 0), (nwin - 1, 1), (17, 5), (3, bt - 1)])
+        if err:
+            raise AssertionError(f"K5 (affine={affine}): max abs err {err} "
+                                 f"against the plain version")
+        ferr, fold_plain_s, _ = check_fold(ops, got, golden_windows=(3,))
+        ferr = max(ferr, check_fold_collisions(ops, got))
+        check_buckets_golden(ops, pts, digits, blind, got,
+                             cm.bucket_fold(ops, got), bt,
+                             [(0, 0), (nwin - 1, 1), (17, 2), (17, 5),
+                              (3, bt - 1)])
         ms = timed_ms(lambda: cm.pip_bucket(ops, P, digits, blind, bt,
                                             affine), dev, 5)
-        fold_ms = timed_ms(lambda: cm.bucket_fold(ops, got), dev, 5)
+        fold_ms = timed_ms(lambda: cm.fold_windows(ops, got), dev, 5)
         out["affine" if affine else "jacobian"] = dict(
             pip_bucket_ms=ms, pip_bucket_plain_ms=plain_s * 1e3,
-            bucket_fold_ms=fold_ms, bucket_fold_plain_ms=fold_plain_s * 1e3,
+            fold_windows_ms=fold_ms, fold_windows_plain_ms=fold_plain_s * 1e3,
             max_abs_err=max(err, ferr))
     return dict(check="pip_bucket+bucket_fold modes",
                 shape=[nwin, N // bt, bt], c=c, **out)
@@ -525,15 +601,17 @@ def msm_inputs(ops, n, dev, nbases=8):
     return points, L.ints_to_tensor(sc, dev), want
 
 
-def msm_stages(dev, ops, points, scalars, nbits, plain: bool):
+def msm_stages(dev, ops, points, scalars, nbits, plain: bool, bt=None):
     """One MSM taken apart as `cuda_msm.pippenger_msm` runs it, on operands
     on the card: host-clock seconds per stage (synchronised), K5's and K6's
-    times by CUDA events, their bounds from this run's digits, and with
-    `plain` their plain versions on the same inputs (bit-identical state
-    required). Returns (stage record, K5 row, K6 row, the MSM's point)."""
+    times by CUDA events, their bounds from this run's digits, K6 against
+    its plain version (limb-identical totals required, also on the
+    collision state), and with `plain` K5 against its plain version
+    (bit-identical state required). Returns (stage record, K5 row, K6 row,
+    the MSM's point)."""
     from porla_tpu_torch.curves import cuda_msm as cm
     N = points.x.shape[0]
-    bt = cm.DEFAULT_BT
+    bt = cm.DEFAULT_BT if bt is None else bt
     c = cm.choose_c(N, nbits)
     nb = 1 << (c - 1)
     nwin, tight = cm._nwin_for(nbits, c)
@@ -552,27 +630,35 @@ def msm_stages(dev, ops, points, scalars, nbits, plain: bool):
     affine = stage("affine_detect", lambda: cm._is_affine(ops, points.z))
     digits = stage("digits", lambda: cm.signed_digits(
         scalars, points.z, c, nwin, tight))
-    state = stage("pip_bucket", lambda: cm.pip_bucket(
-        ops, points, digits, blind, bt, affine))
-    folded = stage("bucket_fold", lambda: cm.bucket_fold(ops, state))
-    wins = stage("reduce_lanes", lambda: cm.reduce_lanes(ops, folded))
+    packed = stage("pack_points", lambda: cm.pack_points(points, bt, affine))
+    state = stage("pip_bucket", lambda: cm.launch_pip_bucket(
+        ops, packed, digits, blind, bt, affine))
+    wins = stage("fold_windows", lambda: cm.fold_windows(ops, state))
     got = stage("host_horner", lambda: cm.horner(
         ops, ops.to_affine(wins), c, bt, blind.tsum))
 
-    k5_ms = timed_ms(lambda: cm.pip_bucket(ops, points, digits, blind, bt,
-                                           affine), dev, 3)
-    k6_ms = timed_ms(lambda: cm.bucket_fold(ops, state), dev, 5)
+    k5_ms = timed_ms(lambda: cm.launch_pip_bucket(ops, packed, digits, blind,
+                                                  bt, affine), dev, 3)
+    k6_ms = timed_ms(lambda: cm.fold_windows(ops, state), dev, 5)
+    lanes_ms = timed_ms(lambda: cm.bucket_fold(ops, state), dev, 5)
     adds = int(((digits & 255) != 0).sum().item())     # digit 0 adds nowhere
     state_bytes = nwin * nb * bt * 3 * FE_BYTES
     k5_b, k5_by = bound(adds * (MADD if affine else ADD) * OPS_PER_FE_MUL,
                         N * ((2 if affine else 3) * FE_BYTES + nbits // 8)
                         + nb * 2 * FE_BYTES + state_bytes)
-    k6_b, k6_by = bound(nwin * bt * 2 * (nb - 1) * ADD * OPS_PER_FE_MUL,
-                        state_bytes + nwin * bt * 3 * FE_BYTES)
+    # the fold's 2(nb-1) adds a (window, lane) and the lane sum's bt-1 a
+    # window; the state in, one point a window out
+    k6_b, k6_by = bound(nwin * (bt * 2 * (nb - 1) + bt - 1) * ADD
+                        * OPS_PER_FE_MUL,
+                        state_bytes + nwin * 3 * FE_BYTES)
     k5 = dict(name="pip_bucket", shape=[nwin, steps, bt], c=c, nbits=nbits,
               bucket_adds=adds, ms=k5_ms, bound_ms=k5_b, bound_by=k5_by)
     k6 = dict(name="bucket_fold", shape=[nwin, nb, bt], ms=k6_ms,
-              bound_ms=k6_b, bound_by=k6_by)
+              lanes_only_ms=lanes_ms, bound_ms=k6_b, bound_by=k6_by)
+    err, plain_s, plain_wins = check_fold(ops, state)
+    k6["plain_ms"] = plain_s * 1e3
+    k6["max_abs_err"] = max(err, limb_err(wins, plain_wins),
+                            check_fold_collisions(ops, state))
     if plain:
         t0 = time.perf_counter()
         pstate = cm.pip_bucket_plain(ops, points, digits, blind, bt, affine)
@@ -580,18 +666,46 @@ def msm_stages(dev, ops, points, scalars, nbits, plain: bool):
         k5["plain_ms"] = (time.perf_counter() - t0) * 1e3
         k5["max_abs_err"] = state_err(state, pstate)
         del pstate
-        t0 = time.perf_counter()
-        pfold = cm.bucket_fold_plain(ops, state)
-        torch.cuda.synchronize(dev)
-        k6["plain_ms"] = (time.perf_counter() - t0) * 1e3
-        k6["max_abs_err"] = limb_err(folded, pfold)
-        if k5["max_abs_err"] or k6["max_abs_err"]:
+        if k5["max_abs_err"]:
             raise AssertionError(
-                f"K5/K6 at {N} points: max abs err {k5['max_abs_err']} / "
-                f"{k6['max_abs_err']} against the plain versions")
+                f"K5 at {N} points: max abs err {k5['max_abs_err']} against "
+                f"the plain version")
     rec = {"msm_stages": {"curve": ops.fp.name, "n": N, "c": c, "nwin": nwin,
-                          "s": stages}}
+                          "bt": bt, "s": stages}}
     return rec, k5, k6, got
+
+
+def assert_kernels_only(ops, fn):
+    """Run fn() (one MSM on operands on the card) and require that it took
+    one K5 launch, one K6 call (two launches: the fold and the lane sum)
+    and no plain torch point arithmetic: between the digits and `to_affine`
+    everything is the two kernels."""
+    from porla_tpu_torch import native
+    from porla_tpu_torch.curves.weierstrass import CurveOps
+    names = ("add", "madd", "add_raw", "madd_raw", "double", "tree_sum")
+    real = {n: getattr(CurveOps, n) for n in names}
+    calls = []
+
+    def counted(name):
+        def f(*a, **k):
+            calls.append(name)
+            return real[name](*a, **k)
+        return f
+
+    before = native.launches()
+    for n in names:
+        setattr(CurveOps, n, counted(n))
+    try:
+        out = fn()
+    finally:
+        for n in names:
+            setattr(CurveOps, n, real[n])
+    took = {k: v - before[k] for k, v in native.launches().items()
+            if v - before[k]}
+    if calls or took != {"pip_bucket": 1, "bucket_fold": 2}:
+        raise AssertionError(f"one MSM took launches {took} and plain torch "
+                             f"point ops {calls}")
+    return out
 
 
 def run_msm(dev, kat_path):
@@ -647,6 +761,11 @@ def run_msm(dev, kat_path):
     px, sx, wantx = msm_inputs(secp, nx, dev)
     run("secp256k1_crossover", secp,
         lambda: kernels.msm(secp, px, sx, nbits), wantx, nx)
+    for ops_, p_, s_, b_, want_ in ((secp, p20, s20, nbits, want20),
+                                    (secp, px, sx, nbits, wantx)):
+        got = assert_kernels_only(ops_, lambda: kernels.msm(ops_, p_, s_, b_))
+        if ops_.to_affine(got)[0] != want_:
+            raise RuntimeError("MSM mismatch vs golden (kernels-only run)")
 
     # the streamed form from CPU tensors (8 chunks) equals the resident run
     p20h = JacPoint(*(c.cpu() for c in p20))
@@ -708,7 +827,45 @@ def run_msm(dev, kat_path):
     emit(recb)
     emit({"check": "pip_bucket bn254", **k5b})
     emit({"check": "bucket_fold bn254", **k6b})
+    recx, k5x, k6x, got = msm_stages(dev, secp, px, sx, nbits, plain=True)
+    if got != wantx:
+        raise RuntimeError("staged MSM mismatch vs golden (crossover)")
+    emit(recx)
+    emit({"check": "pip_bucket crossover", **k5x})
+    emit({"check": "bucket_fold crossover", **k6x})
+    lane_widths(dev, secp, p20, s20, nbits, want20)
+    lane_widths(dev, bn, pb, sb, bbits, wantb)
     return runs, total, k5, k6
+
+
+LANE_WIDTHS = (512, 1024, 2048)
+
+
+def lane_widths(dev, ops, points, scalars, nbits, want, widths=LANE_WIDTHS):
+    """K5, K6 and the packing at each lane width on one MSM's operands:
+    CUDA-event milliseconds of K5's launch, of `fold_windows` and of
+    `pack_points`, and the MSM's point from each width's state against the
+    golden point. What `cuda_msm.DEFAULT_BT` was chosen from."""
+    from porla_tpu_torch.curves import cuda_msm as cm
+    N = points.x.shape[0]
+    c = cm.choose_c(N, nbits)
+    nwin, tight = cm._nwin_for(nbits, c)
+    digits = cm.signed_digits(scalars, points.z, c, nwin, tight)
+    blind = cm.blinding(ops, 1 << (c - 1), BLIND_SEED, dev)
+    for bt in widths:
+        packed = cm.pack_points(points, bt, True)
+        state = cm.launch_pip_bucket(ops, packed, digits, blind, bt, True)
+        wins = cm.fold_windows(ops, state)
+        if cm.horner(ops, ops.to_affine(wins), c, bt, blind.tsum) != want:
+            raise RuntimeError(f"MSM mismatch vs golden at {bt} lanes "
+                               f"({ops.fp.name})")
+        emit({"lane_width": bt, "curve": ops.fp.name, "n": N, "c": c,
+              "k5_ms": timed_ms(lambda: cm.launch_pip_bucket(
+                  ops, packed, digits, blind, bt, True), dev, 3),
+              "k6_ms": timed_ms(lambda: cm.fold_windows(ops, state), dev, 3),
+              "pack_ms": timed_ms(lambda: cm.pack_points(points, bt, True),
+                                  dev, 3)})
+        del packed, state
 
 
 def check_msm_parts(dev, ops):

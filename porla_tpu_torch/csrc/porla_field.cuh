@@ -154,10 +154,109 @@ PORLA_HD Fe fe_sub(const Fe& a, const Fe& b, const Mod& M) {
   return fe_sel(bw != 0, f, d);
 }
 
+#ifdef __CUDA_ARCH__
+// The device form of fe_mul keeps its running sum T as two 9-word arrays,
+// T = X + 2^32 * Y, and adds a row a * b as two independent carry chains of
+// multiply-adds: the even words' products land on (x0,x1) .. (x6,x7), the odd
+// words' on (y0,y1) .. (y6,y7). A product's low and high word are then
+// neighbours in an aligned register pair of its chain, so each pair compiles
+// to one wide multiply-add with carry and no moves; the 64-bit C form of the
+// same row costs three instructions a product.
+__device__ __forceinline__ void mac_pair(uint32_t (&x)[9], uint32_t (&y)[9],
+                                         const uint32_t* a, uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %9, %13, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+      "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+      "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+      "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]),
+        "+r"(x[5]), "+r"(x[6]), "+r"(x[7]), "+r"(x[8])
+      : "r"(a[0]), "r"(a[2]), "r"(a[4]), "r"(a[6]), "r"(b));
+  asm("mad.lo.cc.u32 %0, %9, %13, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+      "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+      "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+      "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(y[0]), "+r"(y[1]), "+r"(y[2]), "+r"(y[3]), "+r"(y[4]),
+        "+r"(y[5]), "+r"(y[6]), "+r"(y[7]), "+r"(y[8])
+      : "r"(a[1]), "r"(a[3]), "r"(a[5]), "r"(a[7]), "r"(b));
+}
+
+// The same row fused with T's shift down by one word (x0 is 0 after a
+// reduction row): the old Y becomes the new X in place, taking the old X's
+// word 1 into its word 0, whose carry has the weight of the new Y's word 0
+// and starts that chain; the new Y is the old X from word 2 on.
+__device__ __forceinline__ void mac_shift(uint32_t (&x)[9], uint32_t (&yn)[9],
+                                          const uint32_t (&o)[9],
+                                          const uint32_t* a, uint32_t b) {
+  asm("add.cc.u32 %9, %9, %10;\n\t"
+      "madc.lo.cc.u32 %0, %18, %22, %11;\n\t"
+      "madc.hi.cc.u32 %1, %18, %22, %12;\n\t"
+      "madc.lo.cc.u32 %2, %19, %22, %13;\n\t"
+      "madc.hi.cc.u32 %3, %19, %22, %14;\n\t"
+      "madc.lo.cc.u32 %4, %20, %22, %15;\n\t"
+      "madc.hi.cc.u32 %5, %20, %22, %16;\n\t"
+      "madc.lo.cc.u32 %6, %21, %22, %17;\n\t"
+      "madc.hi.cc.u32 %7, %21, %22, 0;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : "=&r"(yn[0]), "=&r"(yn[1]), "=&r"(yn[2]), "=&r"(yn[3]), "=&r"(yn[4]),
+        "=&r"(yn[5]), "=&r"(yn[6]), "=&r"(yn[7]), "=&r"(yn[8]), "+r"(x[0])
+      : "r"(o[1]), "r"(o[2]), "r"(o[3]), "r"(o[4]), "r"(o[5]), "r"(o[6]),
+        "r"(o[7]), "r"(o[8]), "r"(a[1]), "r"(a[3]), "r"(a[5]), "r"(a[7]),
+        "r"(b));
+  asm("mad.lo.cc.u32 %0, %9, %13, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+      "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+      "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+      "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]),
+        "+r"(x[5]), "+r"(x[6]), "+r"(x[7]), "+r"(x[8])
+      : "r"(a[0]), "r"(a[2]), "r"(a[4]), "r"(a[6]), "r"(b));
+}
+#endif
+
 // Montgomery product a*b*2^-256 mod n (CIOS). One operand may be any
 // 256-bit value, the other canonical: the result is then < 2n before the
-// final conditional subtract, and canonical after it.
+// final conditional subtract, and canonical after it. The device and the
+// host form compute the same integers word for word.
 PORLA_HD Fe fe_mul(const Fe& a, const Fe& b, const Mod& M) {
+#ifdef __CUDA_ARCH__
+  uint32_t x[9], y[9];
+#pragma unroll
+  for (int j = 0; j < 9; j++) x[j] = y[j] = 0;
+  mac_pair(x, y, a.w, b.w[0]);
+  mac_pair(x, y, M.n, x[0] * M.ninv);      // x0 becomes 0
+#pragma unroll
+  for (int i = 1; i < 8; i++) {
+    uint32_t yn[9];
+    mac_shift(y, yn, x, a.w, b.w[i]);
+#pragma unroll
+    for (int j = 0; j < 9; j++) x[j] = y[j], y[j] = yn[j];
+    mac_pair(x, y, M.n, x[0] * M.ninv);
+  }
+  // T / 2^32 = Y + X from word 1 on
+  uint32_t t[9];
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    c += (uint64_t)y[j] + x[j + 1];
+    t[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  t[8] = y[8] + (uint32_t)c;
+#else
   uint32_t t[10];
 #pragma unroll
   for (int j = 0; j < 10; j++) t[j] = 0;
@@ -185,6 +284,7 @@ PORLA_HD Fe fe_mul(const Fe& a, const Fe& b, const Mod& M) {
     t[7] = (uint32_t)c;
     t[8] = t[9] + (uint32_t)(c >> 32);
   }
+#endif
   Fe r;
 #pragma unroll
   for (int j = 0; j < 8; j++) r.w[j] = t[j];
@@ -360,9 +460,10 @@ PORLA_HD void pt_store(int64_t* x, int64_t* y, int64_t* z, int64_t i,
   fe_store(z + 16 * i, p.z);
 }
 
-// Field elements held as 8 x 32-bit words `stride` words apart (the bucket
-// state of the MSM kernels: the lane is the fastest axis, so a warp's loads
-// of one word are contiguous)
+// Field elements held as 8 x 32-bit words `stride` words apart, and points
+// as x, y, z of 8 such words each (24 words): the lane-fastest layouts of the
+// MSM kernels' packed points and lane partials, where a warp's accesses to
+// one word are contiguous
 PORLA_HD Fe fe_load_words(const uint32_t* p, int64_t stride) {
   Fe r;
 #pragma unroll
@@ -375,25 +476,96 @@ PORLA_HD void fe_store_words(uint32_t* p, int64_t stride, const Fe& a) {
   for (int i = 0; i < 8; i++) p[i * stride] = a.w[i];
 }
 
-// Bucket (window w, slot s) of lane `lane` in a (nwin, nb, 3, 8, bt) state
-PORLA_HD int64_t bucket_offset(int64_t w, int64_t s, int nb, int bt,
-                               int lane) {
-  return ((w * nb + s) * 24) * bt + lane;
-}
-
-PORLA_HD Pt bucket_load(const uint32_t* st, int64_t off, int bt) {
+PORLA_HD Pt pt_load_strided(const uint32_t* p, int64_t stride) {
   Pt r;
-  r.x = fe_load_words(st + off, bt);
-  r.y = fe_load_words(st + off + 8 * (int64_t)bt, bt);
-  r.z = fe_load_words(st + off + 16 * (int64_t)bt, bt);
+  r.x = fe_load_words(p, stride);
+  r.y = fe_load_words(p + 8 * stride, stride);
+  r.z = fe_load_words(p + 16 * stride, stride);
   return r;
 }
 
-PORLA_HD void bucket_store(uint32_t* st, int64_t off, int bt, const Pt& p) {
-  fe_store_words(st + off, bt, p.x);
-  fe_store_words(st + off + 8 * (int64_t)bt, bt, p.y);
-  fe_store_words(st + off + 16 * (int64_t)bt, bt, p.z);
+PORLA_HD void pt_store_strided(uint32_t* p, int64_t stride, const Pt& v) {
+  fe_store_words(p, stride, v.x);
+  fe_store_words(p + 8 * stride, stride, v.y);
+  fe_store_words(p + 16 * stride, stride, v.z);
 }
+
+// Bucket (window w, slot s) of lane `lane` in the MSM kernels' bucket state
+// (nwin, nb, bt, 3, 8): a bucket is 24 contiguous words (96 bytes, 16-byte
+// aligned), because the lanes of a warp select different slots: a thread's
+// access then fills three 32-byte sectors of device memory, where a
+// lane-fastest state would touch 24 sectors for the same 96 bytes. For one
+// slot the lanes are neighbours, so initialising and folding coalesce.
+PORLA_HD int64_t bucket_offset(int64_t w, int64_t s, int nb, int bt,
+                               int lane) {
+  return (((w * nb + s) * bt) + lane) * 24;
+}
+
+#ifdef __CUDA_ARCH__
+// 16-byte accesses: a bucket is six of them
+__device__ __forceinline__ Fe fe_load_vec(const uint4* q) {
+  uint4 a = q[0], b = q[1];
+  Fe r;
+  r.w[0] = a.x, r.w[1] = a.y, r.w[2] = a.z, r.w[3] = a.w;
+  r.w[4] = b.x, r.w[5] = b.y, r.w[6] = b.z, r.w[7] = b.w;
+  return r;
+}
+
+__device__ __forceinline__ void fe_store_vec(uint4* q, const Fe& a) {
+  q[0] = make_uint4(a.w[0], a.w[1], a.w[2], a.w[3]);
+  q[1] = make_uint4(a.w[4], a.w[5], a.w[6], a.w[7]);
+}
+#endif
+
+PORLA_HD Pt bucket_load(const uint32_t* p) {
+#ifdef __CUDA_ARCH__
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  Pt r;
+  r.x = fe_load_vec(q);
+  r.y = fe_load_vec(q + 2);
+  r.z = fe_load_vec(q + 4);
+  return r;
+#else
+  return pt_load_strided(p, 1);
+#endif
+}
+
+PORLA_HD void bucket_store(uint32_t* p, const Pt& v) {
+#ifdef __CUDA_ARCH__
+  uint4* q = reinterpret_cast<uint4*>(p);
+  fe_store_vec(q, v.x);
+  fe_store_vec(q + 2, v.y);
+  fe_store_vec(q + 4, v.z);
+#else
+  pt_store_strided(p, 1, v);
+#endif
+}
+
+// Sum of one point per thread over the first n threads of a block (n a power
+// of two, n <= blockDim.x), paired as the lane-halving sums of the plain torch
+// code pair them: at width w thread t takes thread t + w, for w = n/2 .. 1, so
+// the Jacobian limbs come out the same. Full-cased adds: partial sums can
+// collide or be infinity. Every thread of the block must call it (barriers
+// inside; mask the value, not the thread); the total is returned in thread 0.
+// `smem` holds 24 * n/2 words, slot-fastest, so a warp's accesses to one word
+// do not conflict. A host build that supplies threadIdx and __syncthreads()
+// defines PORLA_HOST_BLOCKS to get it.
+#if defined(__CUDACC__) || defined(PORLA_HOST_BLOCKS)
+PORLA_PT Pt block_tree_sum(Pt v, uint32_t* smem, int n, const Mod& M) {
+  int t = threadIdx.x;
+  int slots = n / 2;
+  for (int w = n / 2; w >= 1; w >>= 1) {
+    if (t >= w && t < 2 * w) pt_store_strided(smem + (t - w), slots, v);
+    __syncthreads();
+    if (t < w) {
+      Pt other = pt_load_strided(smem + t, slots);
+      v = pt_add(v, other, M);
+    }
+    __syncthreads();
+  }
+  return v;
+}
+#endif
 
 // 4-bit window w (LSB first) of a scalar held as 16 int64 16-bit limbs
 PORLA_HD int nibble(const int64_t* s, int w) {

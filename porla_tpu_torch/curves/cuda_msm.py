@@ -16,9 +16,11 @@ its `steps` points one after the other:
   infinity and never equals an incoming point except with negligible
   probability, the add is the raw formula without case handling.
 - K6 (`csrc/bucket_fold.cu`) folds each pair's buckets to sum_s s*B_s by the
-  suffix-run trick.
-- `reduce_lanes` sums the bt lanes of every window with full-cased adds (lane
-  partials can collide), in plain torch as the reference does in XLA.
+  suffix-run trick and sums the bt lanes of every window with full-cased
+  adds (lane partials can collide): `fold_windows`. Its plain version is
+  `bucket_fold_plain` followed by `reduce_lanes`, which pairs the lanes as
+  the reference's lane-halving sum does, so the window totals are the same
+  Jacobian limbs.
 - The host finishes in exact Python ints: Horner over the windows from the
   top down, minus the known blinding contribution
   bt * (sum_w 2^(cw)) * (sum_s s*d_s) * G.
@@ -27,13 +29,18 @@ The result is exact and independent of the blinding values. An adversary
 who picks the MSM's inputs cannot steer a bucket into the unhandled doubling
 case, because the blinding scalars come from `random.SystemRandom()`.
 
-The bucket state between K5 and K6 is internal to them: (nwin, nb, 3, 8, bt)
-32-bit words (a coordinate is 8 words), the lane the fastest axis.
-`pack_state` / `unpack_state` convert it to and from limb points.
+The bucket state between K5 and K6 is internal to them: (nwin, nb, bt, 3, 8)
+32-bit words (a coordinate is 8 words), a bucket 96 contiguous bytes: the
+lanes of a warp select different slots, so a lane-fastest state would cost
+K5 a 32-byte sector of device memory for every 4-byte word. `pack_state` /
+`unpack_state` convert it to and from limb points. K5 reads its points, which
+all lanes take from the same step, with the lane the fastest axis: (steps, 2
+or 3, 8, bt) words (`pack_points`, once per call, per chunk in the streamed
+form).
 
 A CPU tensor goes to the plain torch versions (`pip_bucket_plain`,
-`bucket_fold_plain`), which give bit-identical state; a CUDA tensor launches
-the kernels or raises.
+`bucket_fold_plain`, `reduce_lanes`), which give bit-identical state and
+totals; a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -54,8 +61,8 @@ from porla_tpu_torch.golden import ecc
 # width-c digits reach |d| = 2^(c-1), which at c = 8 is exactly 128.
 SIGN = 256
 MAX_C = 8            # nb = 2^(c-1) <= 128 keeps |d| below the sign flag
-DEFAULT_BT = 512     # lanes per step
-CHUNK_STEPS = 256    # steps per chunk of the streamed form
+DEFAULT_BT = 1024    # lanes per step
+CHUNK_STEPS = 128    # steps per chunk of the streamed form (2^17 points)
 
 
 # --- policy -------------------------------------------------------------------
@@ -151,45 +158,65 @@ def blinding(ops: CurveOps, nb: int, seed: int | None = None,
 
 # --- bucket state layout --------------------------------------------------------
 
-def pack_state(buckets: JacPoint) -> torch.Tensor:
-    """(nwin, nb, bt, 16)-limb points -> (nwin, nb, 3, 8, bt) int32 words."""
-    lim = torch.stack(list(buckets), 2)                  # (nwin, nb, 3, bt, 16)
+def _words(lim: torch.Tensor) -> torch.Tensor:
+    """(…, 16) limbs -> (…, 8) int32 words: word k is limbs 2k, 2k+1,
+    little-endian, the unsigned value kept in the signed type's bits."""
     w = lim[..., 0::2] | (lim[..., 1::2] << 16)          # in [0, 2^32)
     w = w - ((w >> 31) << 32)                            # as signed 32-bit
-    return w.to(torch.int32).transpose(-1, -2).contiguous()
+    return w.to(torch.int32)
+
+
+def pack_state(buckets: JacPoint) -> torch.Tensor:
+    """(nwin, nb, bt, 16)-limb points -> (nwin, nb, bt, 3, 8) int32 words."""
+    return _words(torch.stack(list(buckets), 3)).contiguous()
+
+
+def pack_points(points: JacPoint, bt: int, affine: bool) -> torch.Tensor:
+    """(steps*bt, 16)-limb points -> (steps, 2 or 3, 8, bt) int32 words, the
+    form K5 reads: step k of lane l is point k*bt + l, x then y (then z
+    unless `affine`), the lane the fastest axis."""
+    coords = points[:2] if affine else points
+    w = torch.stack([_words(c) for c in coords])         # (nc, npts, 8)
+    w = w.reshape(len(coords), -1, bt, 8)
+    return w.permute(1, 0, 3, 2).contiguous()
 
 
 def unpack_state(state: torch.Tensor) -> JacPoint:
-    """(nwin, nb, 3, 8, bt) int32 words -> (nwin, nb, bt, 16)-limb points."""
-    w = state.transpose(-1, -2).to(torch.int64) & 0xFFFFFFFF
+    """(nwin, nb, bt, 3, 8) int32 words -> (nwin, nb, bt, 16)-limb points."""
+    w = state.to(torch.int64) & 0xFFFFFFFF
     lim = torch.stack([w & L.LIMB_MASK, w >> 16], -1).flatten(-2)
-    return JacPoint(lim[:, :, 0], lim[:, :, 1], lim[:, :, 2])
+    return JacPoint(lim[..., 0, :], lim[..., 1, :], lim[..., 2, :])
 
 
-def _check_bucket_args(points: JacPoint, digits, blind: Blinding, bt: int,
-                       state):
-    nwin, npts = digits.shape
-    nb = blind.x.shape[0]
-    if digits.dtype != torch.int32 or npts % bt:
+def _check_bucket_args(digits, blind: Blinding, bt: int, state):
+    """Shapes and dtypes of K5's operands other than the points (both the
+    kernel's launch and the plain version check them) -> nwin, nb, steps."""
+    if digits.dtype != torch.int32 or digits.dim() != 2 \
+            or digits.shape[1] % bt:
         raise ValueError(f"digits {digits.dtype} {tuple(digits.shape)} do "
                          f"not tile {bt} lanes")
+    nwin, npts = digits.shape
+    nb = blind.x.shape[0]
+    if blind.x.shape != (nb, L.NLIMBS) or blind.y.shape != (nb, L.NLIMBS):
+        raise ValueError("blinding points must be (nb, 16) limbs")
+    if state is not None:
+        _check_state(state, (nwin, nb, bt, 3, 8))
+    return nwin, nb, npts // bt
+
+
+def _check_points(points: JacPoint, npts: int):
     for t in points:
         if t.shape != (npts, L.NLIMBS):
             raise ValueError(f"point coordinate shape {tuple(t.shape)}, "
                              f"expected ({npts}, {L.NLIMBS})")
-    if blind.x.shape != (nb, L.NLIMBS) or blind.y.shape != (nb, L.NLIMBS):
-        raise ValueError("blinding points must be (nb, 16) limbs")
-    if state is not None:
-        _check_state(state, (nwin, nb, 3, 8, bt))
-    return nwin, nb, npts // bt
 
 
 def _check_state(state, shape=None):
     if state.dtype != torch.int32 or state.dim() != 5 \
-            or state.shape[2:4] != (3, 8) \
+            or state.shape[3:] != (3, 8) \
             or (shape is not None and state.shape != shape):
         raise ValueError(f"bucket state {state.dtype} {tuple(state.shape)}, "
-                         f"expected int32 {shape or '(nwin, nb, 3, 8, bt)'}")
+                         f"expected int32 {shape or '(nwin, nb, bt, 3, 8)'}")
 
 
 def _require_contiguous(device, t: torch.Tensor):
@@ -206,7 +233,8 @@ def pip_bucket_plain(ops: CurveOps, points: JacPoint, digits, blind: Blinding,
     """The plain version of K5, batched over all (window, lane) pairs: a
     Python loop over the steps, a gather of the selected bucket, one raw
     add, and a scatter that writes only where the digit is nonzero."""
-    nwin, nb, steps = _check_bucket_args(points, digits, blind, bt, state)
+    nwin, nb, steps = _check_bucket_args(digits, blind, bt, state)
+    _check_points(points, digits.shape[1])
     dev = digits.device
     if state is None:
         shape = (nwin, nb, bt, L.NLIMBS)
@@ -237,7 +265,7 @@ def pip_bucket(ops: CurveOps, points: JacPoint, digits: torch.Tensor,
                blind: Blinding, bt: int, affine: bool,
                state: torch.Tensor | None = None) -> torch.Tensor:
     """Accumulate `steps` rows of bt points into the buckets their digits
-    select -> bucket state (nwin, nb, 3, 8, bt).
+    select -> bucket state (nwin, nb, bt, 3, 8).
 
     points: (steps*bt, 16)-limb JacPoint (Montgomery; with `affine` every z
     is R or 0 and is not read); digits: (nwin, steps*bt) from
@@ -246,19 +274,36 @@ def pip_bucket(ops: CurveOps, points: JacPoint, digits: torch.Tensor,
     the card) — the carry mode of the streamed form."""
     if points.x.device.type == "cpu":
         return pip_bucket_plain(ops, points, digits, blind, bt, affine, state)
-    nwin, nb, steps = _check_bucket_args(points, digits, blind, bt, state)
-    dev = points.x.device
-    native.require(dev, *points, blind.x, blind.y)
+    _check_points(points, digits.shape[-1])
+    native.require(points.x.device, *points)
+    return launch_pip_bucket(ops, pack_points(points, bt, affine), digits,
+                             blind, bt, affine, state)
+
+
+def launch_pip_bucket(ops: CurveOps, packed: torch.Tensor,
+                      digits: torch.Tensor, blind: Blinding, bt: int,
+                      affine: bool,
+                      state: torch.Tensor | None = None) -> torch.Tensor:
+    """K5's launch alone, on points already packed by `pack_points`."""
+    dev = packed.device
+    nwin, nb, steps = _check_bucket_args(digits, blind, bt, state)
+    if packed.dtype != torch.int32 \
+            or packed.shape != (steps, 2 if affine else 3, 8, bt):
+        raise ValueError(f"packed points {packed.dtype} "
+                         f"{tuple(packed.shape)} do not match {steps} steps "
+                         f"of {bt} lanes")
+    native.require(dev, blind.x, blind.y)
+    _require_contiguous(dev, packed)
     _require_contiguous(dev, digits)
     first = state is None
     if first:
-        state = torch.empty((nwin, nb, 3, 8, bt), dtype=torch.int32,
+        state = torch.empty((nwin, nb, bt, 3, 8), dtype=torch.int32,
                             device=dev)
     else:
         _require_contiguous(dev, state)
     lib = native.library()
     rc = lib.porla_pip_bucket(
-        *map(native.ptr, points), native.ptr(digits), native.ptr(state),
+        native.ptr(packed), native.ptr(digits), native.ptr(state),
         native.ptr(blind.x), native.ptr(blind.y), nwin, nb, bt, steps,
         int(affine), int(first), native.mod_words(ops.fp),
         native.stream(dev))
@@ -283,33 +328,58 @@ def bucket_fold_plain(ops: CurveOps, state: torch.Tensor) -> JacPoint:
     return acc
 
 
+def _launch_bucket_fold(ops: CurveOps, state: torch.Tensor,
+                        lanes: bool) -> JacPoint:
+    """K6 on the card: with `lanes` the fold alone, (nwin, bt, 16) limbs, one
+    launch; without, the fold and the lane sum, (nwin, 16) limbs, two
+    launches (the sum needs a barrier across the fold's blocks), both
+    counted."""
+    _check_state(state)
+    dev = state.device
+    _require_contiguous(dev, state)
+    nwin, nb, bt = state.shape[:3]
+    shape = (nwin, bt, L.NLIMBS) if lanes else (nwin, L.NLIMBS)
+    out = JacPoint(*(torch.empty(shape, dtype=torch.int64, device=dev)
+                     for _ in range(3)))
+    # the fold's lane partials as packed words, summed in place
+    part = None if lanes else torch.empty((nwin, 3, 8, bt),
+                                          dtype=torch.int32, device=dev)
+    lib = native.library()
+    rc = lib.porla_bucket_fold(
+        native.ptr(state), None if part is None else native.ptr(part),
+        *map(native.ptr, out), nwin, nb, bt, int(lanes),
+        native.mod_words(ops.fp), native.stream(dev))
+    native.KERNELS["bucket_fold"].launches += 1 if lanes else 2
+    native.check(rc, "bucket_fold")
+    return out
+
+
 def bucket_fold(ops: CurveOps, state: torch.Tensor) -> JacPoint:
     """sum_s s*B_s of every (window, lane) pair's buckets -> (nwin, bt,
     16)-limb JacPoint (never infinity: the buckets are blinded)."""
     if state.device.type == "cpu":
         return bucket_fold_plain(ops, state)
+    return _launch_bucket_fold(ops, state, lanes=True)
+
+
+def fold_windows(ops: CurveOps, state: torch.Tensor) -> JacPoint:
+    """sum over the lanes of sum_s s*B_s -> (nwin, 16)-limb window totals:
+    `reduce_lanes` of `bucket_fold`, limb for limb, in one call of K6 (two
+    launches on the card: the fold, then the lane sum)."""
     _check_state(state)
-    dev = state.device
-    _require_contiguous(dev, state)
-    nwin, nb, _, _, bt = state.shape
-    out = JacPoint(*(torch.empty((nwin, bt, L.NLIMBS), dtype=torch.int64,
-                                 device=dev) for _ in range(3)))
-    lib = native.library()
-    rc = lib.porla_bucket_fold(native.ptr(state), *map(native.ptr, out),
-                               nwin, nb, bt, native.mod_words(ops.fp),
-                               native.stream(dev))
-    native.KERNELS["bucket_fold"].launches += 1
-    native.check(rc, "bucket_fold")
-    return out
+    bt = state.shape[2]
+    if bt & (bt - 1):
+        raise ValueError(f"lane width must be a power of two: {bt}")
+    if state.device.type == "cpu":
+        return reduce_lanes(ops, bucket_fold_plain(ops, state))
+    return _launch_bucket_fold(ops, state, lanes=False)
 
-
-# --- after the kernels ----------------------------------------------------------
 
 def reduce_lanes(ops: CurveOps, p: JacPoint) -> JacPoint:
     """(nwin, bt, 16) folded lane partials -> (nwin, 16) window totals by
     log2(bt) lane-halving adds. Full-cased adds: lane partials can
     legitimately collide. bt must be a power of two, or lanes would be
-    dropped silently."""
+    dropped silently. Plain torch: the second half of K6's plain version."""
     w = p.x.shape[1]
     if w & (w - 1):
         raise ValueError(f"lane width must be a power of two: {w}")
@@ -319,6 +389,8 @@ def reduce_lanes(ops: CurveOps, p: JacPoint) -> JacPoint:
                     JacPoint(*(c[:, w:2 * w] for c in p)))
     return JacPoint(*(c[:, 0] for c in p))
 
+
+# --- after the kernels ----------------------------------------------------------
 
 def horner(ops: CurveOps, wins: list, c: int, bt: int, tsum: int):
     """Window totals (affine, window 0 first) -> the MSM's affine point:
@@ -394,7 +466,7 @@ def pippenger_msm(ops: CurveOps, points: JacPoint, scalars: torch.Tensor,
         digits = signed_digits(_pad_rows(scalars.to(dev), npad), pts.z, c,
                                nwin, tight)
         state = pip_bucket(ops, pts, digits, blind, bt, affine)
-    wins = reduce_lanes(ops, bucket_fold(ops, state))
+    wins = fold_windows(ops, state)
     total = horner(ops, ops.to_affine(wins), c, bt, blind.tsum)
     return ops.from_affine([total])
 

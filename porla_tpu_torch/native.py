@@ -98,8 +98,8 @@ _SIGNATURES = {
     "porla_point_butterfly_window": [_P] * 7 + [_I32] + [_P] * 6
                                     + [_I64, _P, _P],
     "porla_fixed_base": [_P] * 7 + [_I64, _I32, _I32, _P, _P],
-    "porla_pip_bucket": [_P] * 7 + [_I32] * 6 + [_P, _P],
-    "porla_bucket_fold": [_P] * 4 + [_I32] * 3 + [_P, _P],
+    "porla_pip_bucket": [_P] * 5 + [_I32] * 6 + [_P, _P],
+    "porla_bucket_fold": [_P] * 5 + [_I32] * 4 + [_P, _P],
 }
 
 

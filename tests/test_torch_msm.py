@@ -20,6 +20,7 @@ from porla_tpu_torch.curves import kernels
 from porla_tpu_torch.curves.instances import bn254, secp256k1
 from porla_tpu_torch.curves.weierstrass import JacPoint, index
 from porla_tpu_torch.fields import limbs as L
+from porla_tpu_torch.fields import mont
 from porla_tpu_torch.golden import ecc
 
 torch.set_num_threads(1)     # small tensors; xdist runs files side by side
@@ -181,7 +182,7 @@ def test_buckets_and_fold_vs_exact_ints():
     digits = cm.signed_digits(L.ints_to_tensor(sc), p.z, c, nwin, tight)
     blind = cm.blinding(ops, nb, SEED)
     state = cm.pip_bucket(ops, p, digits, blind, bt, True)
-    assert state.shape == (nwin, nb, 3, 8, bt) and state.dtype == torch.int32
+    assert state.shape == (nwin, nb, bt, 3, 8) and state.dtype == torch.int32
     buckets = cm.unpack_state(state)
     d_aff = ops.to_affine(JacPoint(blind.x, blind.y,
                                    ops.fp.const("r_limbs", "cpu")
@@ -203,6 +204,123 @@ def test_buckets_and_fold_vs_exact_ints():
             == fold
 
 
+def _small_state(ops, c=3, bt=128, nbits=6, steps=2, seed=21):
+    """A bucket state from tiled bases: (state, blinding, nwin)."""
+    pts, sc, _ = _tiled(ops, bt * steps, nbits, seed=seed)
+    nwin, tight = cm._nwin_for(nbits, c)
+    digits = cm.signed_digits(L.ints_to_tensor(sc), pts.z, c, nwin, tight)
+    blind = cm.blinding(ops, 1 << (c - 1), SEED)
+    return cm.pip_bucket(ops, pts, digits, blind, bt, True), blind, nwin
+
+
+def _collision_state(ops, state):
+    """Lane bt/2 holds lane 0's buckets (the lane sum's first level meets
+    P + P), lane bt/2 + 1 the negation of lane 1's (P + (-P) there, and
+    infinity on one side one level deeper)."""
+    h = state.shape[2] // 2
+    out = state.clone()
+    out[:, :, h] = state[:, :, 0]
+    b = cm.unpack_state(state[:, :, 1:2])
+    neg = cm.pack_state(JacPoint(b.x, mont.neg_mod(b.y, ops.fp), b.z))
+    out[:, :, h + 1] = neg[:, :, 0]
+    return out
+
+
+def test_fold_windows_is_reduce_lanes_of_bucket_fold():
+    """On the CPU `fold_windows` is its plain version, limb for limb, and
+    keeps `reduce_lanes`' refusal of a width that is no power of two."""
+    ops = secp256k1()
+    state, _, nwin = _small_state(ops)
+    wins = cm.fold_windows(ops, state)
+    want = cm.reduce_lanes(ops, cm.bucket_fold(ops, state))
+    assert wins.x.shape == (nwin, L.NLIMBS)
+    assert all(torch.equal(a, b) for a, b in zip(wins, want))
+    with pytest.raises(ValueError, match="power of two"):
+        cm.fold_windows(ops, state[:, :, :96].contiguous())
+    with pytest.raises(ValueError):
+        cm.fold_windows(ops, torch.zeros((3, 4, 128, 3, 8)))
+
+
+def test_fold_windows_collision_state_vs_exact_ints():
+    """Lane partials that are equal, opposite and, summed, infinity: the
+    window totals are the exact sums of the lanes' folds."""
+    ops = secp256k1()
+    cur = ops.curve
+    state, _, nwin = _small_state(ops)
+    cstate = _collision_state(ops, state)
+    bt = state.shape[2]
+    h = bt // 2
+    lanes = cm.bucket_fold(ops, cstate)
+    aff = [ops.to_affine(index(lanes, w)) for w in range(nwin)]
+    assert all(a[0] == a[h] and a[1] == ecc.neg(cur, a[h + 1]) for a in aff)
+    level1 = ops.add(index(lanes, (slice(None), slice(0, h))),
+                     index(lanes, (slice(None), slice(h, bt))))
+    first = ops.to_affine(index(level1, 0))
+    assert first[0] == ecc.add(cur, aff[0][0], aff[0][0])    # P + P
+    assert first[1] is ecc.INF                               # P + (-P)
+    got = ops.to_affine(cm.fold_windows(ops, cstate))
+    for w in range(nwin):
+        want = ecc.INF
+        for q in aff[w]:
+            want = ecc.add(cur, want, q)
+        assert got[w] == want
+
+
+def test_repeated_digits_vs_exact_ints():
+    """The same slot in consecutive steps of a lane, with both signs: the
+    case in which K5's bucket loaded ahead is stale. The plain version is
+    sequential and gives the exact buckets."""
+    ops = secp256k1()
+    cur = ops.curve
+    bt, steps, nb = 2, 6, 4
+    rng = random.Random(5)
+    pts = [ecc.mul(cur, cur.g, rng.randrange(1, cur.n))
+           for _ in range(bt * steps)]
+    S = cm.SIGN
+    lanes = [[3, 3, 3 | S, 3 | S, 3, 1], [2 | S, 2, 2 | S, 0, 2, 2]]
+    digits = torch.tensor([[lanes[l][k] for k in range(steps)
+                            for l in range(bt)]], dtype=torch.int32)
+    blind = cm.blinding(ops, nb, SEED)
+    state = cm.pip_bucket_plain(ops, ops.from_affine(pts), digits, blind, bt,
+                                True)
+    d_aff = ops.to_affine(JacPoint(blind.x, blind.y,
+                                   ops.fp.const("r_limbs", "cpu")
+                                   .expand_as(blind.x)))
+    buckets = cm.unpack_state(state)
+    for l in range(bt):
+        want = list(d_aff)
+        for k, v in enumerate(lanes[l]):
+            slot, q = v & 255, pts[k * bt + l]
+            if slot:
+                want[slot - 1] = ecc.add(cur, want[slot - 1],
+                                         ecc.neg(cur, q) if v >> 8 else q)
+        assert ops.to_affine(index(buckets, (0, slice(None), l))) == want
+
+
+def test_point_packing_word_order_and_round_trip():
+    """`pack_points` gives (steps, 2 or 3, 8, bt) words: word i of
+    coordinate c of step k, lane l is bits 32i..32i+31 of that coordinate
+    of point k*bt + l."""
+    rng = random.Random(8)
+    bt, steps = 4, 3
+    vals = [[rng.getrandbits(256) for _ in range(bt * steps)]
+            for _ in range(3)]
+    vals[0][0], vals[1][1], vals[2][2] = (1 << 256) - 1, 0x80000000, 0
+    p = JacPoint(*(L.ints_to_tensor(v) for v in vals))
+    for affine in (True, False):
+        nc = 2 if affine else 3
+        packed = cm.pack_points(p, bt, affine)
+        assert packed.shape == (steps, nc, 8, bt)
+        assert packed.dtype == torch.int32 and packed.is_contiguous()
+        w = packed.to(torch.int64) & 0xFFFFFFFF
+        for c in range(nc):
+            for k in range(steps):
+                for l in range(bt):
+                    got = sum(int(w[k, c, i, l]) << (32 * i)
+                              for i in range(8))
+                    assert got == vals[c][k * bt + l]
+
+
 def test_state_packing_round_trip():
     rng = random.Random(3)
     vals = [rng.getrandbits(256) for _ in range(2 * 3 * 4)] \
@@ -210,7 +328,7 @@ def test_state_packing_round_trip():
     t = L.ints_to_tensor(vals[:24]).reshape(2, 3, 4, L.NLIMBS)
     e = L.ints_to_tensor((vals[24:] * 6)[:24]).reshape(2, 3, 4, L.NLIMBS)
     state = cm.pack_state(JacPoint(t, e, t))
-    assert state.shape == (2, 3, 3, 8, 4) and state.is_contiguous()
+    assert state.shape == (2, 3, 4, 3, 8) and state.is_contiguous()
     back = cm.unpack_state(state)
     assert torch.equal(back.x, t) and torch.equal(back.y, e)
     # word k of a coordinate is limbs 2k, 2k+1 (little-endian), as the
@@ -232,6 +350,23 @@ def test_wrappers_reject_bad_operands():
         cm.pip_bucket(ops, p, torch.zeros((3, 128), dtype=torch.int32),
                       blind, 128, True,
                       torch.zeros((3, 4, 3, 8, 128), dtype=torch.int32))
+    # the launch on packed points makes the same checks before any pointer
+    # reaches the kernel
+    packed = cm.pack_points(p, 128, True)
+    good = torch.zeros((3, 128), dtype=torch.int32)
+    for digits, bl, state, what in (
+            (good.to(torch.int64), blind, None, "digits"),
+            (good[:, :100], blind, None, "digits"),
+            (good, cm.Blinding(blind.x[:, :8], blind.y, blind.tsum), None,
+             "blinding"),
+            (good, blind, torch.zeros((3, 4, 3, 8, 128), dtype=torch.int32),
+             "bucket state"),
+            (good, blind, torch.zeros((3, 8, 128, 3, 8)), "bucket state")):
+        with pytest.raises(ValueError, match=what):
+            cm.launch_pip_bucket(ops, packed, digits, bl, 128, True, state)
+    with pytest.raises(ValueError, match="packed points"):
+        cm.launch_pip_bucket(ops, cm.pack_points(p, 64, True), good, blind,
+                             128, True)
     with pytest.raises(ValueError):
         cm.bucket_fold(ops, torch.zeros((3, 8, 3, 8, 128)))
     s = L.ints_to_tensor([1] * 128)

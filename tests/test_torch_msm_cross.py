@@ -2,7 +2,8 @@
 against the reference package's (`porla_tpu/curves/pallas_msm.py`) on the
 same inputs: the policy, the signed digits (against the jitted `_prep_fn`),
 the blinding points under a shared seed, the plain versions of K5 and K6
-against the Pallas kernels in interpret mode, and the whole MSM. All
+against the Pallas kernels in interpret mode (K6's window totals against
+the reference's fold and its own lane reduction), and the whole MSM. All
 integer arithmetic; tolerance zero. Inputs come from `random.Random` seeds.
 
 The interpret-mode compile of one `_pip_call` / `_fold_call` pair takes
@@ -123,10 +124,11 @@ def _affine_buckets(jops, sx, sy, sz):
 
 
 def _compare_kernels(ops, jops, pts, sc, nbits, c, bt, affine, seed,
-                     jac_lam=None):
+                     jac_lam=None, windows=False):
     """K5's and K6's plain versions against `_pip_call` / `_fold_call` in
     interpret mode on the same padded operands: every bucket and every
-    folded lane is the same affine point."""
+    folded lane is the same affine point; with `windows`, every window
+    total of `fold_windows` against `_fold_call` then `_reduce_fn`."""
     nb = 1 << (c - 1)
     nwin, tight = pallas_msm._nwin_for(nbits, c)
     steps = -(-len(pts) // bt)
@@ -160,6 +162,14 @@ def _compare_kernels(ops, jops, pts, sc, nbits, c, bt, affine, seed,
     digits = cm.signed_digits(L.to_torch(s), P.z, c, nwin, tight)
     blind = cm.blinding(ops, nb, seed)
     state = cm.pip_bucket(ops, P, digits, blind, bt, affine)
+    if windows:
+        # K6 with its lane sum against the reference's fold followed by its
+        # own lane reduction: the same window totals
+        red = pallas_msm._reduce_fn(jops, nwin, bt)(
+            *(jnp.asarray(_limbs(t)) for t in ref_fold))
+        want_w = jops.to_affine(JJacPoint(*(np.asarray(t) for t in red)))
+        assert ops.to_affine(cm.fold_windows(ops, state)) == want_w
+        return
     folded = cm.bucket_fold(ops, state)
 
     want, shape = _affine_buckets(jops, *ref_state)
@@ -189,6 +199,13 @@ def test_plain_kernels_match_pallas_interpret(blind_seed):
     pts, sc = _inputs(jsecp().curve, 8, 21)
     _compare_kernels(secp256k1(), jsecp(), pts, sc, 8, 4, 128, True,
                      blind_seed)
+
+
+def test_fold_windows_matches_fold_call_and_reduce_fn(blind_seed):
+    """Same call shape as the test above: reuses its compiled pair."""
+    pts, sc = _inputs(jsecp().curve, 8, 21)
+    _compare_kernels(secp256k1(), jsecp(), pts, sc, 8, 4, 128, True,
+                     blind_seed, windows=True)
 
 
 def test_pippenger_msm_matches_reference(blind_seed):
