@@ -4,41 +4,31 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   `porla_tpu_torch/csrc/` (six sources, one `nvcc` each, in parallel) and
+   `porla_tpu_torch/csrc/` (seven sources, one `nvcc` each, in parallel) and
    prints the build seconds.
 2. Holds each kernel (K1 ntt_stage, K2 scalar_mul in its windowed and
-   GLV modes, K3 point_butterfly, K4 fixed_base, K5 pip_bucket, K6
-   bucket_fold, K7 point_butterfly_window) at the shapes of the paths
+   GLV modes, K3 point_butterfly, K4 fixed_base, group_sum, K5 pip_bucket,
+   K6 bucket_fold, K7 point_butterfly_window) at the shapes of the paths
    below against its plain torch version on the card (tolerance: exact,
    bit-identical limbs or bucket words, so points are the same affine
    points, infinity included) and against exact Python integers on a few
    lanes, including edge lanes. Times both with CUDA events (median after
-   a warm-up). K5 and K6 are also held against their plain versions in
-   every mode (affine, Jacobian, first then carry) at 2^14 points with
-   runs of the same digit in consecutive steps of a lane; K6 means both
-   `bucket_fold` (per lane) and `fold_windows` (with the lane sum), also
-   on a constructed state whose lane sum meets P + P, P + (-P) and
-   infinity.
+   a warm-up). K4 at each of the path's shapes (per lane and in groups at
+   the commit shape, the two IPA shapes, the complements) and at one group
+   too wide for a block (K4 then group_sum); group_sum at the audit's part
+   sums and at 300 lanes. One `fb_msm_groups`, one `commit_blocks` and one
+   `msm_parts` call must be their kernels' launches alone, with no plain
+   torch point arithmetic. K5 and K6 are also held against their plain
+   versions in every mode (affine, Jacobian, first then carry) at 2^14
+   points with runs of the same digit in consecutive steps of a lane; K6
+   means both `bucket_fold` (per lane) and `fold_windows` (with the lane
+   sum), also on a constructed state whose lane sum meets P + P, P + (-P)
+   and infinity.
 3. Runs the IPA protocol at n = 1024 blocks on the card: initialize, an
    audit, 4 updates, another audit (both must verify), then a corrupted
-   codeword that the next audit must reject. K1-K4's launch counts must
-   rise during this run.
-4. Runs the variable-base MSM entry point `curves.kernels.msm` on operands
-   on the card: 2^20 points on secp256k1 and on BN254 G1 and 4096 points
-   (the Pippenger crossover), built as `bench.py` builds them, every run
-   checked against the golden sum; 2^16 distinct points; the streamed form
-   from CPU tensors at 2^20; the reference-C vector (n = 300); `msm_parts`
-   at 4096 stacked lanes; and the public `point_butterfly` at nbits = 64.
-   K5-K7's launch counts must rise during this run. One MSM must take
-   exactly one K5 launch and K6's two (the fold, then the lane sum) and no
-   plain torch point arithmetic. Prints seconds per MSM and points per
-   second, and where one MSM's seconds go (at 2^20 on both curves and at
-   4096), with K6 held against its plain version at each of those shapes;
-   then K5's, K6's and the packing's milliseconds at 512, 1024 and 2048
-   lanes on both curves, each width's MSM checked against the golden sum.
-5. Prints one JSON line of per-kernel results, the card line again, and
-   as its last line {"ok": true, "device": {...}}.
-
+   codeword that the next audit must reject. K1-K4's and group_sum's launch
+   counts must rise during this run. K3 is then checked and timed at the
+   widest butterfly the updates launched.
 Any failed phase raises, so the script exits nonzero and prints no result.
 It exits nonzero when torch finds no CUDA device or the port's package is
 not beside it.
@@ -77,8 +67,8 @@ OPS_PER_FE_MUL = 136 * 2 * 2   # CIOS over 8 words: 136 wide products
 FE_BYTES = 32                  # one 256-bit field element, packed
 # field products (multiplies and squares) per lane that the algorithms
 # need, secp256k1 (a = 0), Jacobian: doubling 3M+4S, add 12M+4S, mixed add
-# 7M+4S. The kernels' branchless adds also compute the P == Q doubling;
-# that is the implementation's cost, not the function's, and not counted.
+# 7M+4S. The full-cased adds compute the P == Q doubling only where a lane
+# meets that case, which these inputs' random lanes do not.
 DBL, ADD, MADD = 7, 16, 11
 TABLE16 = 7 * DBL + 7 * ADD    # 2P..15P of a 16-entry window table
 
@@ -286,8 +276,12 @@ def check_k2(dev, rng, ops):
     return out
 
 
-def check_k3(dev, rng, ops, B=N_BLOCKS):
-    """K3 at a CRebuild MAC stage's launch (2 planes x n/2 lanes)."""
+def k3_inputs(dev, rng, ops, B):
+    """K3's operands at B lanes with check_k3's edge lanes (B >= 5): an
+    infinity input, a zero scalar, m0 == s*m1 (the hi add doubles, lo is
+    infinity), m0 == -s*m1, an infinity m0. Returns (M0, M1, scalars, GLV
+    split, golden hi, golden lo) with the golden points of the first 12
+    lanes."""
     from porla_tpu_torch.curves import cuda_curve as cc
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.golden import ecc
@@ -305,61 +299,186 @@ def check_k3(dev, rng, ops, B=N_BLOCKS):
     M0 = jacobian(ops, m0, [1 + v for v in rand_below(rng, cv.p - 1, B)], dev)
     M1 = jacobian(ops, m1, [1 + v for v in rand_below(rng, cv.p - 1, B)], dev)
     sc = L.ints_to_tensor(k, dev)
-    g = cc.GlvScalars(ops, sc)
+    t = [ecc.mul(cv, m1[i], k[i]) for i in range(min(12, B))]
+    return (M0, M1, sc, cc.GlvScalars(ops, sc),
+            [ecc.add(cv, m0[i], ti) for i, ti in enumerate(t)],
+            [ecc.add(cv, m0[i], ecc.neg(cv, ti)) for i, ti in enumerate(t)])
+
+
+def k3_bound(B):
+    """The function's least work: the interleaved GLV order's shared
+    doublings (32 windows of 4 doublings and 2 adds, two 16-entry tables),
+    whatever order the kernel takes; two points in and two out, two 128-bit
+    halves and their sign bits."""
+    muls = 1 + 2 * TABLE16 + 32 * (4 * DBL + 2 * ADD) + 2 * ADD
+    return bound(B * muls * OPS_PER_FE_MUL,
+                 B * (12 * FE_BYTES + 2 * 16) + (2 * B + 7) // 8)
+
+
+def check_k3(dev, rng, ops, B=N_BLOCKS):
+    """K3 at a CRebuild MAC stage's launch (2 planes x n/2 lanes) or at
+    another shape of the path: bit-identical to its plain version, the
+    edge lanes equal to the golden points; timed."""
+    from porla_tpu_torch.curves import cuda_curve as cc
+
+    M0, M1, sc, g, ghi, glo = k3_inputs(dev, rng, ops, B)
     hi, lo = cc.point_butterfly(ops, M0, M1, sc)
     phi, plo = cc.glv_butterfly_plain(ops, M0, M1, g)
-    lanes = list(range(12))
-    t = [ecc.mul(cv, m1[i], k[i]) for i in lanes]
-    err = max(
-        check_points(ops, "K3 hi", hi, phi, lanes,
-                     [ecc.add(cv, m0[i], ti) for i, ti in zip(lanes, t)]),
-        check_points(ops, "K3 lo", lo, plo, lanes,
-                     [ecc.add(cv, m0[i], ecc.neg(cv, ti))
-                      for i, ti in zip(lanes, t)]))
-    ms = timed_ms(lambda: cc.launch_point_butterfly(ops, M0, M1, g),
-                  dev, 10)
+    lanes = list(range(min(12, B)))
+    err = max(check_points(ops, "K3 hi", hi, phi, lanes, ghi),
+              check_points(ops, "K3 lo", lo, plo, lanes, glo))
+    ms = timed_ms(lambda: cc.launch_point_butterfly(ops, M0, M1, g), dev, 10)
     plain_ms = timed_ms(lambda: cc.glv_butterfly_plain(ops, M0, M1, g),
                         dev, 3)
-    muls = 1 + 2 * TABLE16 + 32 * (4 * DBL + 2 * ADD) + 2 * ADD
-    # two points in, two out, two 128-bit halves and their sign bits
-    b_ms, b_by = bound(B * muls * OPS_PER_FE_MUL,
-                       B * (12 * FE_BYTES + 2 * 16) + (2 * B + 7) // 8)
+    b_ms, b_by = k3_bound(B)
     return dict(name="point_butterfly", shape=[B, 16], ms=ms,
                 plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
                 bound_by=b_by)
 
 
-def check_k4(dev, rng, ops, nblocks=N_BLOCKS):
-    """K4 at the client's initialize commitment: every chunk of n blocks
-    against the 128 Pedersen generators (n x 128 lanes, 256-bit)."""
+def fb_bound(sc, nout, ng, nbits):
+    """K4's least work on this run's scalars `sc`: a mixed add for each
+    nonzero digit and a group's g - 1 full adds; the distinct table entries
+    (x, y) the digits select, the scalars and the points out."""
+    from porla_tpu_torch.curves import cuda_curve as cc
+    B = sc.shape[0]
+    nwin = nbits // 4
+    d = torch.stack([cc._nibble(sc, w) for w in range(nwin)], 1)
+    e = (torch.arange(nwin, device=sc.device) * 16 + d) * ng \
+        + (torch.arange(B, device=sc.device) % ng)[:, None]
+    entries = torch.unique(e[d != 0]).numel()
+    madds = int((d != 0).sum().item())
+    g = B // nout if nout else 1
+    adds = (nout or B) * (g - 1)
+    return bound((madds * MADD + adds * ADD) * OPS_PER_FE_MUL,
+                 entries * 2 * FE_BYTES + B * nbits // 8
+                 + (nout or B) * 3 * FE_BYTES)
+
+
+def fb_edge_scalars(rng, B, nbits, n):
+    """Random scalars below 2^nbits with the edge lanes 0, 1, n - 1, n and
+    2^nbits - 1 (n the group order; past the width only what fits) first."""
+    top = 1 << nbits
+    k = rand_below(rng, top, B)
+    edges = [0, 1] + [v for v in (n - 1, n) if v < top] + [top - 1]
+    k[:len(edges)] = edges
+    return k
+
+
+# the main path's shapes of K4: (name, lanes, groups (0: per lane), bases,
+# scalar bits); and one group too wide for a block, which no caller on the
+# path makes: K4 per lane, then group_sum
+FB_SHAPES = (
+    ("commit_lanes", N_BLOCKS * 128, 0, 128, 256),        # fb_scalar_mul
+    ("commit_blocks", N_BLOCKS * 128, N_BLOCKS, 128, 256),
+    ("ipa_msm2", 256, 2, 128, 256),
+    ("ipa_msm", 128, 1, 128, 256),
+    ("complements", 2 * N_BLOCKS, 0, 1, 128),
+    ("wide_group", 2 * N_BLOCKS, 1, 128, 256),
+)
+
+
+def check_k4(dev, rng, ops):
+    """K4 at each of FB_SHAPES: bit-identical to its plain version, the
+    edge lanes (or the first groups) equal to the golden model, timed with
+    its plain version and bound. The wide group must be one K4 launch and
+    one group_sum, with no plain torch point op. Returns one row per
+    shape."""
     from porla_tpu_torch.commit import pedersen
-    from porla_tpu_torch.config import NUM_CHUNKS
     from porla_tpu_torch.curves import cuda_curve as cc
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.golden import ecc
 
     cv = ops.curve
     gens, _, gens_aff = pedersen.ipa_generators()
-    tbl = cc.fb_table_for(ops, gens)
-    B = nblocks * NUM_CHUNKS
-    k = rand_below(rng, 1 << 256, B)
-    k[0], k[1], k[2] = 0, 1, (1 << 256) - 1
-    sc = L.ints_to_tensor(k, dev)
-    got = cc.fb_scalar_mul(tbl, sc)
-    plain = cc.fb_scalar_mul_plain(tbl, sc)
-    lanes = list(range(8)) + [B - 1 - i for i in range(4)]
-    err = check_points(ops, "K4", got, plain, lanes,
-                       [ecc.mul(cv, gens_aff[i % NUM_CHUNKS], k[i])
-                        for i in lanes])
-    ms = timed_ms(lambda: cc.fb_scalar_mul(tbl, sc), dev, 10)
-    plain_ms = timed_ms(lambda: cc.fb_scalar_mul_plain(tbl, sc), dev, 3)
-    nwin = 256 // 4
-    # affine (x, y) tables, scalars in, Jacobian points out
-    b_ms, b_by = bound(B * nwin * MADD * OPS_PER_FE_MUL,
-                       nwin * 16 * NUM_CHUNKS * 2 * FE_BYTES
-                       + B * (FE_BYTES + 3 * FE_BYTES))
-    return dict(name="fixed_base", shape=[B, 16], ms=ms, plain_ms=plain_ms,
-                max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+    h = rand_points(rng, cv, 1)
+    rows = []
+    for name, B, nout, ng, nbits in FB_SHAPES:
+        bases = gens_aff[:ng] if ng > 1 else h
+        tbl = cc.fb_table_for(ops, ops.from_affine(bases), nbits)
+        k = fb_edge_scalars(rng, B, nbits, cv.n)
+        sc = L.ints_to_tensor(k, dev)
+        if nout:
+            g = B // nout
+            run = lambda: cc.fb_msm_groups(tbl, sc, nout)
+            plain = lambda: cc.group_sum_plain(
+                ops, cc.fb_lanes_plain(tbl, sc, cc.fb_split(B, g)), nout)
+            lanes = sorted({0, min(1, nout - 1), nout - 1})
+            want = [ecc.msm(cv, [bases[i % ng] for i in range(o * g,
+                                                             (o + 1) * g)],
+                            k[o * g:(o + 1) * g]) for o in lanes]
+        else:
+            run = lambda: cc.fb_scalar_mul(tbl, sc)
+            plain = lambda: cc.fb_scalar_mul_plain(tbl, sc)
+            lanes = list(range(8)) + [B - 1 - i for i in range(4)]
+            want = [ecc.mul(cv, bases[i % ng], k[i]) for i in lanes]
+        split = cc.fb_split(B, B // nout if nout else 1)
+        if name == "wide_group":
+            if (B // nout) * split <= cc.FB_THREADS:
+                raise AssertionError("K4's wide group fits a block")
+            got = assert_kernels_only(ops, run, {"fixed_base": 1,
+                                                 "group_sum": 1},
+                                      "K4 on a group wider than a block")
+        else:
+            got = run()
+        err = check_points(ops, f"K4 {name}", got, plain(), lanes, want)
+        big = B > 4096
+        ms = timed_ms(run, dev, 10)
+        plain_ms = timed_ms(plain, dev, 1 if big else 3, 0 if big else 1)
+        b_ms, b_by = fb_bound(sc, nout, ng, nbits)
+        rows.append(dict(name="fixed_base", shape=[B, 16], case=name,
+                         nout=nout, nbits=nbits, ms=ms, plain_ms=plain_ms,
+                         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                         split=split))
+    return rows
+
+
+def check_group_sum(dev, rng, ops):
+    """group_sum at the audit's `msm_parts` shape (2048 stacked lanes, two
+    parts, some lanes at infinity, P + P and P + (-P) inside a part) and at
+    300 lanes in one group (odd levels): limb for limb `ops.tree_sum` of
+    each group, equal to the golden sums; timed at the audit shape."""
+    from porla_tpu_torch.curves import cuda_curve as cc
+    from porla_tpu_torch.curves.weierstrass import index
+    from porla_tpu_torch.golden import ecc
+
+    cv = ops.curve
+    out = None
+    for B, nout in ((300, 1), (2 * N_BLOCKS, 2)):
+        pts = rand_points(rng, cv, B)
+        for i in (0, 7, B - 1):
+            pts[i] = ecc.INF
+        half = B // nout // 2                           # first level pairs
+        pts[half + 8] = pts[8]                          # P + P
+        pts[half + 10] = ecc.neg(cv, pts[10])           # P + (-P)
+        P = jacobian(ops, pts, [1 + v for v in rand_below(rng, cv.p - 1, B)],
+                     dev)
+        got = cc.group_sum(ops, P, nout)
+        g = B // nout
+        trees = [ops.tree_sum(index(P, slice(o * g, (o + 1) * g)))
+                 for o in range(nout)]
+        err = max(limb_err(index(got, slice(o, o + 1)), trees[o])
+                  for o in range(nout))
+        if err:
+            raise AssertionError(f"group_sum at ({B}, {nout}): max abs err "
+                                 f"{err} against tree_sum")
+        err = max(err, limb_err(got, cc.group_sum_plain(ops, P, nout)))
+        want = [ecc.msm(cv, pts[o * g:(o + 1) * g], [1] * g)
+                for o in range(nout)]
+        if ops.to_affine(got) != want:
+            raise AssertionError(f"group_sum at ({B}, {nout}) differs from "
+                                 f"the golden sums")
+        ms = timed_ms(lambda: cc.group_sum(ops, P, nout), dev, 10)
+        plain_ms = timed_ms(lambda: cc.group_sum_plain(ops, P, nout), dev, 3)
+        b_ms, b_by = bound(nout * (g - 1) * ADD * OPS_PER_FE_MUL,
+                           (B + nout) * 3 * FE_BYTES)
+        row = dict(name="group_sum", shape=[B, 16], nout=nout, ms=ms,
+                   plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
+                   bound_by=b_by)
+        emit({"check": "group_sum", **{k: v for k, v in row.items()
+                                       if k != "name"}})
+        out = row
+    return out
 
 
 def state_err(a, b) -> int:
@@ -675,14 +794,18 @@ def msm_stages(dev, ops, points, scalars, nbits, plain: bool, bt=None):
     return rec, k5, k6, got
 
 
-def assert_kernels_only(ops, fn):
-    """Run fn() (one MSM on operands on the card) and require that it took
-    one K5 launch, one K6 call (two launches: the fold and the lane sum)
-    and no plain torch point arithmetic: between the digits and `to_affine`
-    everything is the two kernels."""
+MSM_LAUNCHES = {"pip_bucket": 1, "bucket_fold": 2}
+
+
+def assert_kernels_only(ops, fn, expect=MSM_LAUNCHES, what="one MSM"):
+    """Run fn() on operands on the card and require that it took exactly
+    the launches `expect` and no plain torch point arithmetic (no CurveOps
+    point op at all). By default fn is one MSM: one K5 launch and one K6
+    call (two launches: the fold and the lane sum)."""
     from porla_tpu_torch import native
     from porla_tpu_torch.curves.weierstrass import CurveOps
-    names = ("add", "madd", "add_raw", "madd_raw", "double", "tree_sum")
+    names = ("add", "madd", "add_raw", "madd_raw", "double", "tree_sum",
+             "scalar_mul", "table16")
     real = {n: getattr(CurveOps, n) for n in names}
     calls = []
 
@@ -702,10 +825,63 @@ def assert_kernels_only(ops, fn):
             setattr(CurveOps, n, real[n])
     took = {k: v - before[k] for k, v in native.launches().items()
             if v - before[k]}
-    if calls or took != {"pip_bucket": 1, "bucket_fold": 2}:
-        raise AssertionError(f"one MSM took launches {took} and plain torch "
-                             f"point ops {calls}")
+    if calls or took != expect:
+        raise AssertionError(f"{what} took launches {took} and plain torch "
+                             f"point ops {calls}; expected {expect} and none")
     return out
+
+
+def check_kernels_only(dev, rng, ops):
+    """One `fb_msm_groups` call (an IPA round's shape), one
+    `commit_blocks` call (an update's, and 1024 blocks at initialize) and one
+    `msm_parts` call (the audit's MAC and alignment MSMs) run on the card as
+    their kernels alone, and give the golden points."""
+    from porla_tpu_torch.commit import pedersen
+    from porla_tpu_torch.curves import cuda_curve as cc
+    from porla_tpu_torch.curves import kernels
+    from porla_tpu_torch.curves.weierstrass import index
+    from porla_tpu_torch.fields import limbs as L
+    from porla_tpu_torch.golden import ecc
+
+    cv = ops.curve
+    gens, _, gens_aff = pedersen.ipa_generators()
+    gens = gens.to(dev)
+    tbl = cc.fb_table_for(ops, gens)
+    k = rand_below(rng, cv.n, 256)
+    got = assert_kernels_only(
+        ops, lambda: cc.fb_msm_groups(tbl, L.ints_to_tensor(k, dev), 2),
+        {"fixed_base": 1}, "one fb_msm_groups call")
+    if ops.to_affine(got) != [ecc.msm(cv, gens_aff, k[:128]),
+                              ecc.msm(cv, gens_aff, k[128:])]:
+        raise AssertionError("fb_msm_groups differs from the golden sums")
+    for nb in (1, N_BLOCKS):
+        kb = rand_below(rng, cv.n, nb * 128)
+        sc = L.ints_to_tensor(kb, dev).reshape(nb, 128, 16)
+        got = assert_kernels_only(
+            ops, lambda: pedersen.commit_blocks(gens, sc), {"fixed_base": 1},
+            f"one commit_blocks call of {nb} blocks")
+        want = [ecc.msm(cv, gens_aff, kb[b * 128:(b + 1) * 128])
+                for b in (0, nb - 1)]
+        if ops.to_affine(index(got, [0, nb - 1])) != want:
+            raise AssertionError("commit_blocks differs from the golden "
+                                 "commitments")
+    n = 2 * N_BLOCKS
+    pts = rand_points(rng, cv, 8)
+    P = ops.from_affine([pts[i % 8] for i in range(n)], dev)
+    kc = [int(v) for v in rng.integers(0, 1 << 32, n)]
+    parts = assert_kernels_only(
+        ops, lambda: kernels.msm_parts(ops, P, L.ints_to_tensor(kc, dev), 2,
+                                       nbits=32),
+        {"scalar_mul_window": 1, "group_sum": 1}, "one msm_parts call")
+    for h, part in enumerate(parts):
+        lanes = range(h * n // 2, (h + 1) * n // 2)
+        want = ecc.msm(cv, [pts[i % 8] for i in lanes], [kc[i] for i in lanes])
+        if ops.to_affine(part)[0] != want:
+            raise AssertionError(f"msm_parts: part {h} differs from the "
+                                 f"golden sum")
+    return {"check": "kernels_only",
+            "calls": ["fb_msm_groups", "commit_blocks x1",
+                      "commit_blocks x1024", "msm_parts"]}
 
 
 def run_msm(dev, kat_path):
@@ -910,7 +1086,8 @@ def check_msm_parts(dev, ops):
 
 def run_protocol(dev, store_dir, n=N_BLOCKS, n_updates=N_UPDATES):
     """initialize -> audit -> updates -> audit -> corrupted audit, on
-    `dev`. Returns (per-phase records, launches over the whole cycle)."""
+    `dev`. Returns (per-phase records, launches over the whole cycle, the
+    (phase, lanes) of every K3 launch)."""
     import numpy as np
     from porla_tpu_torch import native
     from porla_tpu_torch.config import PorlaConfig
@@ -918,8 +1095,18 @@ def run_protocol(dev, store_dir, n=N_BLOCKS, n_updates=N_UPDATES):
     from porla_tpu_torch.protocol import auditing
     from porla_tpu_torch.protocol.server import PorlaServer
     from porla_tpu_torch.protocol.transport import InProcTransport
+    from porla_tpu_torch.curves import cuda_curve as cc
     rng = np.random.default_rng(SEED + 1)
     seed = lambda: rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+    # the lanes of every 256-bit butterfly (K3), by phase (what check_k3
+    # sizes to)
+    k3_lanes, current = [], [None]
+    butterfly = cc.point_butterfly
+
+    def recorded(ops, m0, m1, scalars, nbits=256):
+        if nbits == 256:
+            k3_lanes.append((current[0], m0.x.shape[0]))
+        return butterfly(ops, m0, m1, scalars, nbits)
     cfg = PorlaConfig(scheme="ipa", storage_dir=store_dir)
     server = PorlaServer(cfg, device=dev)
     client = PorlaClient(cfg, InProcTransport(server), data_seed=seed(),
@@ -928,6 +1115,7 @@ def run_protocol(dev, store_dir, n=N_BLOCKS, n_updates=N_UPDATES):
 
     def phase(name, fn):
         before = native.launches()
+        current[0] = name
         t0 = time.perf_counter()
         fn()
         if dev.type == "cuda":
@@ -938,14 +1126,18 @@ def run_protocol(dev, store_dir, n=N_BLOCKS, n_updates=N_UPDATES):
         phases.append(rec)
         emit(rec)
 
-    native.reset_launches()
-    phase("initialize", lambda: client.initialize(n))
-    phase("audit", lambda: client.audit(seed=seed()))
-    for _ in range(n_updates):
-        phase("update", lambda: client.update(
-            client.write_step % client.num_blocks + 1))
-    phase("audit", lambda: client.audit(seed=seed()))
-    total = native.launches()
+    cc.point_butterfly = recorded
+    try:
+        native.reset_launches()
+        phase("initialize", lambda: client.initialize(n))
+        phase("audit", lambda: client.audit(seed=seed()))
+        for _ in range(n_updates):
+            phase("update", lambda: client.update(
+                client.write_step % client.num_blocks + 1))
+        phase("audit", lambda: client.audit(seed=seed()))
+        total = native.launches()
+    finally:
+        cc.point_butterfly = butterfly
 
     # one flipped bit in a stored codeword (its q residue, as in
     # tests/test_protocol_e2e.py::test_corruption_is_detected) must fail
@@ -973,7 +1165,7 @@ def run_protocol(dev, store_dir, n=N_BLOCKS, n_updates=N_UPDATES):
 
     phase("audit_corrupted", corrupted)
     side.data = orig
-    return phases, total
+    return phases, total, k3_lanes
 
 
 def main() -> int:
@@ -1018,9 +1210,19 @@ def main() -> int:
     emit(dict(check="point_butterfly",
               launches=native.launches()["point_butterfly"],
               **{k: v for k, v in k3.items() if k != "name"}))
-    k4 = check_k4(dev, rng, ops)
-    emit(dict(check="fixed_base", launches=native.launches()["fixed_base"],
-              **{k: v for k, v in k4.items() if k != "name"}))
+    k4_rows = check_k4(dev, rng, ops)
+    for row in k4_rows:
+        emit(dict(check="fixed_base", **{k: v for k, v in row.items()
+                                         if k != "name"}))
+    # the kernels line's K4 row: initialize's commit_blocks shape, with
+    # every shape beside it
+    k4 = dict(next(r for r in k4_rows if r["case"] == "commit_blocks"),
+              shapes={r["case"]: {k: r[k] for k in ("shape", "nout", "nbits",
+                                                    "ms", "plain_ms",
+                                                    "bound_ms", "split")}
+                      for r in k4_rows})
+    gs = check_group_sum(dev, rng, ops)
+    emit(check_kernels_only(dev, rng, ops))
     emit(check_k5_k6_modes(dev, rng, ops))
     k7 = check_k7(dev, rng, ops)
     emit(dict(check="point_butterfly_window",
@@ -1033,7 +1235,7 @@ def main() -> int:
     trace.reset()
     trace.enable()
     try:
-        phases, total = run_protocol(dev, store)
+        phases, total, k3_lanes = run_protocol(dev, store)
     finally:
         trace.enable(False)
         shutil.rmtree(store, ignore_errors=True)
@@ -1043,7 +1245,7 @@ def main() -> int:
         if "count" not in line and "gauge" not in line:
             print("trace", line, flush=True)
     protocol_kernels = ("ntt_stage", "scalar_mul_window", "scalar_mul_glv",
-                        "point_butterfly", "fixed_base")
+                        "point_butterfly", "fixed_base", "group_sum")
     msm_kernels = ("pip_bucket", "bucket_fold", "point_butterfly_window")
     missing = [k for k in protocol_kernels if total[k] == 0]
     if missing:
@@ -1058,9 +1260,14 @@ def main() -> int:
         raise AssertionError(f"kernels not launched by the MSM run: "
                              f"{missing}")
     emit(check_msm_parts(dev, ops))
+    # K3 at the widest butterfly the updates launched
+    widest = max(b for ph, b in k3_lanes if ph == "update")
+    k3["update_fold"] = check_k3(dev, rng, ops, B=widest)
+    emit(dict(check="point_butterfly update_fold", **{
+        k: v for k, v in k3["update_fold"].items() if k != "name"}))
 
     rows = []
-    for r in (k1, *k2, k3, k4, k5, k6, k7):
+    for r in (k1, *k2, k3, k4, gs, k5, k6, k7):
         name = r["name"]
         k = native.KERNELS[name]
         per_phase = {}
@@ -1077,6 +1284,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "shape": r["shape"],
             "launches_per_phase": per_phase,
+            **{k: r[k] for k in ("shapes", "update_fold") if k in r},
         })
     emit({"kernels": rows})
     print(card_line(), flush=True)

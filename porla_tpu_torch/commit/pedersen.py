@@ -3,9 +3,8 @@
 A block commitment is the 128-point MSM sum_i chunk_i * G_i over the
 deterministic generators (reference Client.hpp:374-421 /
 Server.hpp:329-361). The generators never change within a run, so every
-commitment rides K4 (`cuda_curve.fb_scalar_mul`) over per-window tables of
-the generators; the per-block sum over the generator axis is a plain torch
-tree of point adds.
+commitment rides K4 over per-window tables of the generators, one group of
+NG lanes a block, summed inside the same launch.
 """
 
 from __future__ import annotations
@@ -41,15 +40,11 @@ def alpha_generators(alpha: int, num: int = NUM_GENERATORS):
 def commit_blocks(generators: JacPoint, scalars: torch.Tensor,
                   nbits: int = 256, ops=None) -> JacPoint:
     """scalars: (B, NG, 16) standard-form chunk values -> JacPoint (B,) of
-    commitments sum_i s_i * G_i, on the scalars' device."""
+    commitments sum_i s_i * G_i, on the scalars' device (NG a power of
+    two)."""
     ops = ops or secp256k1()
     B, ng = scalars.shape[0], scalars.shape[1]
     tbl = cuda_curve.fb_table_for(
         ops, JacPoint(*(c[:ng] for c in generators)), nbits)
-    parts = cuda_curve.fb_scalar_mul(
-        tbl, scalars.reshape(B * ng, limbs.NLIMBS).contiguous())
-    # (B*NG, 16) -> generator axis first, then a tree sum per block
-    parts = JacPoint(*(c.reshape(B, ng, limbs.NLIMBS).transpose(0, 1)
-                       for c in parts))
-    out = ops.tree_sum(parts)
-    return JacPoint(*(c[0] for c in out))
+    return cuda_curve.fb_msm_groups(
+        tbl, scalars.reshape(B * ng, limbs.NLIMBS).contiguous(), nout=B)

@@ -25,7 +25,8 @@
 //   quarter of the limb layout, which stay in L2. Widths above the block are
 //   summed in place by the thread that owns the column (lanes t, t + n, ...
 //   pair only among themselves at those widths, so no barrier is needed);
-//   the last log2(n) levels run in shared memory (block_tree_sum).
+//   the last log2(n) levels run in shared memory (segment_tree_sum over the
+//   block).
 // - With `lanes` set, the fold writes its per-lane partials as (nwin, bt,
 //   16) limbs and no sum is taken: the TPU kernel's own output, for callers
 //   and tests that want it.
@@ -67,7 +68,7 @@ bucket_fold_kernel(const uint32_t* __restrict__ state, uint32_t* part,
 __global__ void __launch_bounds__(TREE_THREADS)
 lane_sum_kernel(uint32_t* part, int64_t* ox, int64_t* oy, int64_t* oz, int bt,
                 Mod M) {
-  __shared__ uint32_t smem[24 * TREE_THREADS / 2];
+  __shared__ uint32_t smem[24 * TREE_THREADS];
   int t = threadIdx.x;
   int n = blockDim.x;
   int64_t w = blockIdx.x;
@@ -79,7 +80,7 @@ lane_sum_kernel(uint32_t* part, int64_t* ox, int64_t* oy, int64_t* oz, int bt,
       pt_store_strided(row + i, bt, pt_add(a, b, M));
     }
   Pt v = pt_load_strided(row + t, bt);
-  v = block_tree_sum(v, smem, n, M);
+  v = segment_tree_sum(v, smem, n, M);
   if (t == 0) pt_store(ox, oy, oz, w, v);
 }
 

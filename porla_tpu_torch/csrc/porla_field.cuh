@@ -1,6 +1,7 @@
 // Shared device functions of the port's Hopper kernels: 256-bit Montgomery
-// field arithmetic over 8 x 32-bit words and branchless Jacobian point ops
-// for a = 0 short-Weierstrass curves (secp256k1, BN254 G1).
+// field arithmetic over 8 x 32-bit words and Jacobian point ops for a = 0
+// short-Weierstrass curves (secp256k1, BN254 G1), their degenerate cases
+// resolved with selects (and the rare doubling case with a branch).
 //
 // Replaces the in-kernel helpers of the TPU kernels
 // (porla_tpu/curves/pallas_curve.py: _f_mul, _p_dbl, _p_add, _p_madd,
@@ -337,8 +338,10 @@ PORLA_PT Pt pt_dbl(const Pt& p, const Mod& M) {
   return r;
 }
 
-// The degenerate cases of an addition, resolved branchlessly: the doubling
-// is computed for every lane and selected where P == Q.
+// The degenerate cases of an addition. The doubling is computed only where
+// P == Q (a branch almost no warp takes: random operands never meet it);
+// the other cases are selects. The result is the one of selecting a
+// doubling computed for every lane.
 PORLA_PT Pt pt_cases(const Pt& raw, const Pt& p1, const Pt& p2,
                      const Fe& U1, const Fe& U2, const Fe& S1, const Fe& S2,
                      const Mod& M) {
@@ -349,7 +352,8 @@ PORLA_PT Pt pt_cases(const Pt& raw, const Pt& p1, const Pt& p2,
   bool both = !p1_inf && !p2_inf;
   bool dbl_case = both && h_zero && r_zero;
   bool inf_case = both && h_zero && !r_zero;
-  Pt out = pt_sel(dbl_case, pt_dbl(p1, M), raw);
+  Pt out = raw;
+  if (dbl_case) out = pt_dbl(p1, M);
   out = pt_sel(inf_case, pt_inf(M), out);
   out = pt_sel(p2_inf, p1, out);
   out = pt_sel(p1_inf, p2, out);
@@ -541,29 +545,53 @@ PORLA_HD void bucket_store(uint32_t* p, const Pt& v) {
 #endif
 }
 
-// Sum of one point per thread over the first n threads of a block (n a power
-// of two, n <= blockDim.x), paired as the lane-halving sums of the plain torch
-// code pair them: at width w thread t takes thread t + w, for w = n/2 .. 1, so
-// the Jacobian limbs come out the same. Full-cased adds: partial sums can
-// collide or be infinity. Every thread of the block must call it (barriers
-// inside; mask the value, not the thread); the total is returned in thread 0.
-// `smem` holds 24 * n/2 words, slot-fastest, so a warp's accesses to one word
+// Sums of one point per thread within segments of `seg` neighbouring threads
+// (seg a power of two dividing blockDim.x; seg = blockDim.x sums the block),
+// paired as the lane-halving sums of the plain torch code pair them: thread t
+// takes thread t + w of its segment for w = seg/2 .. 1, so the Jacobian limbs
+// come out the same. Full-cased adds: partial sums can collide or be
+// infinity. Every thread of the block must call it (barriers inside; mask the
+// value, not the thread); a segment's sum ends in its first thread. `smem`
+// holds 24 * blockDim.x words, slot-fastest, so a warp's accesses to one word
 // do not conflict. A host build that supplies threadIdx and __syncthreads()
 // defines PORLA_HOST_BLOCKS to get it.
 #if defined(__CUDACC__) || defined(PORLA_HOST_BLOCKS)
-PORLA_PT Pt block_tree_sum(Pt v, uint32_t* smem, int n, const Mod& M) {
+PORLA_PT Pt segment_tree_sum(Pt v, uint32_t* smem, int seg, const Mod& M) {
   int t = threadIdx.x;
-  int slots = n / 2;
-  for (int w = n / 2; w >= 1; w >>= 1) {
-    if (t >= w && t < 2 * w) pt_store_strided(smem + (t - w), slots, v);
+  int n = blockDim.x;
+  int j = t & (seg - 1);
+  for (int w = seg / 2; w >= 1; w >>= 1) {
+    if (j >= w && j < 2 * w) pt_store_strided(smem + t, n, v);
     __syncthreads();
-    if (t < w) {
-      Pt other = pt_load_strided(smem + t, slots);
-      v = pt_add(v, other, M);
-    }
+    if (j < w) v = pt_add(v, pt_load_strided(smem + t + w, n), M);
     __syncthreads();
   }
   return v;
+}
+
+// CurveOps.tree_sum's order over m >= 1 points held slot-fastest in `buf`
+// (word k of point i at buf[k * stride + i], shared or device memory): at
+// each level of width m, point i takes point i + m/2 for i < m/2, and an odd
+// m carries its last point to slot m/2. The sum ends in slot 0. Full-cased
+// adds. Every thread of the block calls it; the block's threads share each
+// level's adds, so any m fits any block.
+PORLA_PT void tree_sum_slots(uint32_t* buf, int64_t stride, int m,
+                             const Mod& M) {
+  int t = threadIdx.x;
+  int n = blockDim.x;
+  while (m > 1) {
+    int half = m >> 1;
+    for (int i = t; i < half; i += n)
+      pt_store_strided(buf + i, stride,
+                       pt_add(pt_load_strided(buf + i, stride),
+                              pt_load_strided(buf + i + half, stride), M));
+    __syncthreads();
+    if (m & 1) {
+      if (t < 24) buf[t * stride + half] = buf[t * stride + 2 * half];
+      __syncthreads();
+    }
+    m = half + (m & 1);
+  }
 }
 #endif
 

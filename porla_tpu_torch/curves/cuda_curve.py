@@ -1,23 +1,27 @@
 """Batched elliptic-curve kernels on the card: K2 `scalar_mul`, K3/K7
-`point_butterfly` and K4 `fixed_base`.
+`point_butterfly`, K4 `fixed_base` and `group_sum`.
 
 Counterpart of `porla_tpu/curves/pallas_curve.py`. Each public function
 takes (B, 16)-limb tensors (Montgomery points, standard-form scalars) and
 returns JacPoints on the same device. A CPU tensor goes to the function's
-plain torch version (`*_plain`, the same formulas lane for lane, so the
-outputs are bit-identical Jacobian limbs); a CUDA tensor launches the
-kernel or raises.
+plain torch version (`*_plain`, the same formulas in the same order lane
+for lane, so the outputs are bit-identical Jacobian limbs); a CUDA tensor
+launches the kernel or raises.
 
 - K2 (`csrc/scalar_mul.cu`): windowed mode for nbits < 256 (the audit
   MSMs run at nbits = 32) and GLV mode for nbits = 256, with the scalar
   split done on the host (`curves/glv.py`); each mode has its own launch
   count.
 - K3 and K7 (`csrc/point_butterfly.cu`): (m0 + s*m1, m0 - s*m1) with the
-  GLV scalar mul for 256-bit scalars (K3) and the windowed scalar mul for
-  every other width (K7, `point_butterfly_window`), counted apart.
-- K4 (`csrc/fixed_base.cu`): scalar_i * G_(i mod ng) from per-window
-  affine tables; `fb_msm_groups` sums lane groups afterwards in plain
-  torch.
+  GLV halves k1*q1 and k2*q2 as two chains added at the end for 256-bit
+  scalars (K3) and the windowed scalar mul for every other width (K7,
+  `point_butterfly_window`), counted apart.
+- K4 (`csrc/fixed_base.cu`): scalar_i * G_(i mod ng) from packed
+  per-window affine tables, per lane or summed within lane groups
+  (`fb_msm_groups`) in the same launch.
+- `group_sum` (`csrc/group_sum.cu`): the sum of each of nout contiguous
+  groups of points in `CurveOps.tree_sum`'s order, for `msm_parts` after K2
+  and for K4's groups too wide for a block.
 """
 
 from __future__ import annotations
@@ -162,10 +166,22 @@ def launch_scalar_mul_glv(ops: CurveOps, p: JacPoint, g: GlvScalars):
 
 # --- K3 point_butterfly, K7 point_butterfly_window ---------------------------
 
+def glv_halves_plain(ops: CurveOps, p: JacPoint, g: GlvScalars) -> JacPoint:
+    """k*P as k1*(±P) + k2*(±phi(P)): each half by the windowed scalar mul
+    over 128 bits (its own chain of 32 windows of 4 doublings and one table
+    add), then one full-cased add — K3's order."""
+    p2 = JacPoint(mont.mont_mul(p.x, g.beta.expand_as(p.x), ops.fp), p.y, p.z)
+    q1 = select(g.g1 != 0, ops.neg(p), p)
+    q2 = select(g.g2 != 0, ops.neg(p2), p2)
+    q = JacPoint(*(torch.stack([a, b]) for a, b in zip(q1, q2)))
+    r = ops.scalar_mul(q, torch.stack([g.k1, g.k2]), 128)
+    return ops.add(index(r, 0), index(r, 1))
+
+
 def glv_butterfly_plain(ops: CurveOps, m0: JacPoint, m1: JacPoint,
                         g: GlvScalars):
     """The plain version of K3 for a host split `g`."""
-    t = glv_scalar_mul_plain(ops, m1, g)
+    t = glv_halves_plain(ops, m1, g)
     return ops.add(m0, t), ops.add(m0, ops.neg(t))
 
 
@@ -204,7 +220,8 @@ def point_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
 
 def launch_point_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
                            g: GlvScalars):
-    """K3 on checked CUDA operands and a host split `g`."""
+    """K3 on checked CUDA operands and a host split `g`: 16 threads a lane,
+    each GLV half on 8 threads holding a word of every field element."""
     B = m0.x.shape[0]
     dev = m0.x.device
     _check_glv(g, B, dev)
@@ -215,7 +232,8 @@ def launch_point_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
         *map(native.ptr, m0), *map(native.ptr, m1), native.ptr(g.k1),
         native.ptr(g.k2), native.ptr(g.g1), native.ptr(g.g2),
         native.fe_words(g.beta_mont), *map(native.ptr, hi),
-        *map(native.ptr, lo), B, native.mod_words(ops.fp), native.stream(dev))
+        *map(native.ptr, lo), B, native.mod_words(ops.fp),
+        native.stream(dev))
     native.KERNELS["point_butterfly"].launches += 1
     native.check(rc, "point_butterfly")
     return hi, lo
@@ -244,8 +262,9 @@ def launch_window_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
 
 class FbTable:
     """Per-window affine lookup tables for a fixed set of ng bases:
-    coords (nwin, 16, ng, 16) int64 limbs (Montgomery; z in {0, R}),
-    built once on the host and placed on each device once."""
+    coords (nwin, 16, ng, 16) int64 limbs (Montgomery; z in {0, R}), built
+    once on the host. Each device gets the form it needs once: the limbs
+    for the plain version (`on`), the packed words for K4 (`packed`)."""
 
     def __init__(self, ops: CurveOps, coords, nbits: int, ng: int):
         self.ops = ops
@@ -255,10 +274,29 @@ class FbTable:
         self._dev: dict = {}
 
     def on(self, device) -> JacPoint:
-        key = str(device)
+        key = ("limbs", str(device))
         t = self._dev.get(key)
         if t is None:
             t = self._dev[key] = self.coords.to(device)
+        return t
+
+    def packed(self, device) -> torch.Tensor:
+        """(nwin, 16, ng, 16) int32 words: an entry's x then y, infinity as
+        all zeros, 64 bytes an entry. Zeros are free to mean infinity
+        because no affine point of these curves has y = 0 (their groups
+        have odd order); the packing checks it."""
+        key = ("packed", str(device))
+        t = self._dev.get(key)
+        if t is None:
+            inf = self.coords.z.eq(0).all(-1)
+            y0 = self.coords.y.eq(0).all(-1)
+            if bool((y0 & ~inf).any()):
+                raise ValueError("a table point with y = 0 would read as "
+                                 "infinity")
+            xy = torch.cat([L.words32(self.coords.x),
+                            L.words32(self.coords.y)], -1)
+            xy = xy.masked_fill(inf[..., None], 0)
+            t = self._dev[key] = xy.contiguous().to(device)
         return t
 
 
@@ -342,18 +380,53 @@ def fb_table_for(ops: CurveOps, generators: JacPoint,
     return tbl
 
 
-def fb_scalar_mul_plain(table: FbTable, scalars) -> JacPoint:
+# K4's launch: threads a lane, a power of two. A lane's windows are
+# independent table points, so where the lanes are too few to fill the card a
+# lane's windows are spread over up to FB_SPLIT threads, as long as B * split
+# stays within the threads the card holds at once (FB_RESIDENT); a group-mode
+# block holds at most FB_THREADS (csrc/fixed_base.cu).
+FB_SPLIT = 4
+FB_RESIDENT = 1 << 16
+FB_THREADS = 512
+
+
+def fb_split(B: int, group: int = 1) -> int:
+    """Threads a lane of K4 for B lanes in groups of `group` lanes."""
+    split = FB_SPLIT
+    while split > 1 and (B * split > FB_RESIDENT
+                         or group * split > FB_THREADS):
+        split //= 2
+    return split
+
+
+def fb_lanes_plain(table: FbTable, scalars, split: int) -> JacPoint:
+    """The plain version of K4 per lane with `split` threads a lane: thread
+    j's partial sum walks windows j, j + split, ... with full-cased mixed
+    adds, and the partials are added in a lane-halving tree."""
     ops = table.ops
     B = scalars.shape[0]
     dev = scalars.device
     t = table.on(dev)
     flat = JacPoint(*(c.reshape(-1, L.NLIMBS) for c in t))
     lane_g = torch.arange(B, device=dev) % table.ng
-    acc = ops.infinity((B,), dev)
-    for w in range(table.nbits // 4):
-        e = (w * 16 + _nibble(scalars, w)) * table.ng + lane_g
-        acc = ops.madd(acc, index(flat, e))
-    return acc
+    acc = ops.infinity((split, B), dev)
+    nwin = table.nbits // 4
+    for r in range(0, nwin, split):
+        ws = [min(w, nwin - 1) for w in range(r, r + split)]
+        digit = torch.stack([_nibble(scalars, w) for w in ws])
+        e = (torch.tensor(ws, device=dev)[:, None] * 16 + digit) \
+            * table.ng + lane_g
+        # past the last window a thread adds nothing: a masked-off lane
+        # keeps its accumulator, as the kernel's loop ends there
+        new = ops.madd(acc, index(flat, e))
+        live = torch.tensor([w < nwin for w in range(r, r + split)],
+                            device=dev)[:, None].expand(split, B)
+        acc = select(live, new, acc)
+    return index(ops.tree_sum(acc), 0)
+
+
+def fb_scalar_mul_plain(table: FbTable, scalars) -> JacPoint:
+    return fb_lanes_plain(table, scalars, fb_split(scalars.shape[0]))
 
 
 def fb_scalar_mul(table: FbTable, scalars: torch.Tensor) -> JacPoint:
@@ -364,43 +437,104 @@ def fb_scalar_mul(table: FbTable, scalars: torch.Tensor) -> JacPoint:
         raise ValueError(f"scalars {tuple(scalars.shape)}, expected (B, 16)")
     if scalars.device.type == "cpu":
         return fb_scalar_mul_plain(table, scalars)
-    native.require(scalars.device, scalars, *table.on(scalars.device))
-    return _launch_fixed_base(table, scalars)
+    native.require(scalars.device, scalars)
+    return launch_fixed_base(table, scalars, 0)
 
 
-def _launch_fixed_base(table, scalars):
+def launch_fixed_base(table: FbTable, scalars: torch.Tensor,
+                      nout: int) -> JacPoint:
+    """K4 on checked CUDA scalars, `fb_split` threads a lane: per lane with
+    nout = 0 -> (B, 16), else summed within nout groups -> (nout, 16). One
+    launch where a group fits a block (group * split <= FB_THREADS), else K4
+    per lane into packed words and `group_sum` over them."""
     B = scalars.shape[0]
+    if nout < 0 or nout and B % nout:
+        raise ValueError(f"{B} lanes do not split into {nout} groups")
     dev = scalars.device
-    t = table.on(dev)
+    g = B // nout if nout else 0
+    split = fb_split(B, max(g, 1))
+    wide = g * split > FB_THREADS
+    tab = table.packed(dev)
+    if wide:
+        part = torch.empty((24, B), dtype=torch.int32, device=dev)
+        dst = [None] * 3 + [native.ptr(part)]
+    else:
+        out = JacPoint(*(torch.empty((nout or B, L.NLIMBS), dtype=torch.int64,
+                                     device=dev) for _ in range(3)))
+        dst = list(map(native.ptr, out)) + [None]
     lib = native.library()
-    out = _empty_points(scalars)
-    rc = lib.porla_fixed_base(*map(native.ptr, t), native.ptr(scalars),
-                              *map(native.ptr, out), B, table.ng,
-                              table.nbits // 4,
-                              native.mod_words(table.ops.fp),
-                              native.stream(dev))
+    rc = lib.porla_fixed_base(
+        native.ptr(tab), native.ptr(scalars), *dst, B, table.ng,
+        table.nbits // 4, split, 0 if wide else g,
+        native.mod_words(table.ops.fp), native.stream(dev))
     native.KERNELS["fixed_base"].launches += 1
     native.check(rc, "fixed_base")
+    if wide:
+        return _launch_group_sum(table.ops, None, part, nout, B)
     return out
 
 
 def fb_msm_groups(table: FbTable, scalars: torch.Tensor,
                   nout: int) -> JacPoint:
     """scalars[i] * base[i % ng] summed within nout contiguous lane groups
-    -> (nout, 16) JacPoint. The group sum is a lane-halving tree of plain
-    torch adds after K4."""
+    -> (nout, 16) JacPoint, each group in `CurveOps.tree_sum`'s order: the
+    reference's one-dispatch IPA round, one K4 launch here. The group width
+    must be a power of two, as in the reference (whose lane-halving sum
+    would drop lanes otherwise)."""
     B = scalars.shape[0]
-    assert B % nout == 0, "groups must tile the lane width"
+    if scalars.shape != (B, L.NLIMBS):
+        raise ValueError(f"scalars {tuple(scalars.shape)}, expected (B, 16)")
+    assert nout >= 1 and B % nout == 0, "groups must tile the lane width"
     g = B // nout
-    # the lane-halving reduce would drop lanes for non-pow2 group widths
     assert g & (g - 1) == 0, f"group width must be a power of two: {g}"
-    p = fb_scalar_mul(table, scalars)
-    p = JacPoint(*(c.reshape(nout, g, L.NLIMBS) for c in p))
-    ops = table.ops
-    w = g
-    while w > 1:
-        w //= 2
-        p = ops.add(JacPoint(*(c[:, :w] for c in p)),
-                    JacPoint(*(c[:, w:2 * w] for c in p)))
-    return JacPoint(*(c[:, 0] for c in p))
+    if scalars.device.type == "cpu":
+        return group_sum_plain(table.ops,
+                               fb_lanes_plain(table, scalars, fb_split(B, g)),
+                               nout)
+    native.require(scalars.device, scalars)
+    return launch_fixed_base(table, scalars, nout)
 
+
+# --- group_sum ---------------------------------------------------------------
+
+def group_sum_plain(ops: CurveOps, points: JacPoint, nout: int) -> JacPoint:
+    """`ops.tree_sum` of each of nout contiguous groups, all groups in one
+    batch -> (nout, 16)."""
+    g = points.x.shape[0] // nout
+    p = JacPoint(*(c.reshape(nout, g, L.NLIMBS).transpose(0, 1)
+                   for c in points))
+    return index(ops.tree_sum(p), 0)
+
+
+def group_sum(ops: CurveOps, points: JacPoint, nout: int) -> JacPoint:
+    """(nout*g, 16)-limb Jacobian points -> (nout, 16): the sum of each of
+    nout contiguous groups of g >= 1 points, limb for limb `ops.tree_sum`
+    of each group (an odd level carries its last point). One launch on the
+    card."""
+    B = points.x.shape[0]
+    _check_points(points, B)
+    if nout < 1 or B % nout:
+        raise ValueError(f"{B} points do not split into {nout} groups")
+    if points.x.device.type == "cpu":
+        return group_sum_plain(ops, points, nout)
+    native.require(points.x.device, *points)
+    part = torch.empty((24, B), dtype=torch.int32, device=points.x.device)
+    return _launch_group_sum(ops, points, part, nout, B)
+
+
+def _launch_group_sum(ops: CurveOps, points, part: torch.Tensor, nout: int,
+                      B: int) -> JacPoint:
+    """group_sum's kernel over `points` (packed into `part` first), or over
+    points already packed in `part` ((3, 8, B) words) when `points` is
+    None."""
+    dev = part.device
+    out = JacPoint(*(torch.empty((nout, L.NLIMBS), dtype=torch.int64,
+                                 device=dev) for _ in range(3)))
+    src = [None] * 3 if points is None else list(map(native.ptr, points))
+    lib = native.library()
+    rc = lib.porla_group_sum(*src, native.ptr(part), *map(native.ptr, out),
+                             B, B // nout, native.mod_words(ops.fp),
+                             native.stream(dev))
+    native.KERNELS["group_sum"].launches += 1
+    native.check(rc, "group_sum")
+    return out

@@ -158,17 +158,9 @@ def blinding(ops: CurveOps, nb: int, seed: int | None = None,
 
 # --- bucket state layout --------------------------------------------------------
 
-def _words(lim: torch.Tensor) -> torch.Tensor:
-    """(…, 16) limbs -> (…, 8) int32 words: word k is limbs 2k, 2k+1,
-    little-endian, the unsigned value kept in the signed type's bits."""
-    w = lim[..., 0::2] | (lim[..., 1::2] << 16)          # in [0, 2^32)
-    w = w - ((w >> 31) << 32)                            # as signed 32-bit
-    return w.to(torch.int32)
-
-
 def pack_state(buckets: JacPoint) -> torch.Tensor:
     """(nwin, nb, bt, 16)-limb points -> (nwin, nb, bt, 3, 8) int32 words."""
-    return _words(torch.stack(list(buckets), 3)).contiguous()
+    return L.words32(torch.stack(list(buckets), 3)).contiguous()
 
 
 def pack_points(points: JacPoint, bt: int, affine: bool) -> torch.Tensor:
@@ -176,7 +168,7 @@ def pack_points(points: JacPoint, bt: int, affine: bool) -> torch.Tensor:
     form K5 reads: step k of lane l is point k*bt + l, x then y (then z
     unless `affine`), the lane the fastest axis."""
     coords = points[:2] if affine else points
-    w = torch.stack([_words(c) for c in coords])         # (nc, npts, 8)
+    w = torch.stack([L.words32(c) for c in coords])      # (nc, npts, 8)
     w = w.reshape(len(coords), -1, bt, 8)
     return w.permute(1, 0, 3, 2).contiguous()
 

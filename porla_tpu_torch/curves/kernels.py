@@ -3,8 +3,9 @@
 `msm` carries the Pippenger crossover, as the reference's `kernels.msm`
 does: a batch of `PIPPENGER_CROSSOVER` or more points goes to
 `cuda_msm.pippenger_msm` (K5 `pip_bucket` + K6 `bucket_fold`), a smaller one
-to K2 (`cuda_curve.scalar_mul`) plus a plain torch `tree_sum`. `msm_parts`
-is the server's stacked audit route and has no crossover, as the reference
+to K2 (`cuda_curve.scalar_mul`) plus `cuda_curve.group_sum` (the
+reference's `tree_sum`, one launch on the card). `msm_parts` is the
+server's stacked audit route and has no crossover, as the reference
 server's has none. The same rules hold on the CPU and on the card; CPU
 tensors run the plain versions. The reference package's jit/executable
 caches and its host-fetch batching have no counterpart here: PyTorch runs
@@ -35,13 +36,12 @@ def msm(ops: CurveOps, points: JacPoint, scalars,
 def msm_parts(ops: CurveOps, points: JacPoint, scalars, nparts: int,
               nbits: int = 256) -> list[JacPoint]:
     """`nparts` MSMs over equal contiguous slices of the leading axis, with
-    one K2 launch for all of them and a `tree_sum` per part -> list of (1,)
-    points. Any size: the server's audit stacks its MAC and alignment MSMs
-    here."""
+    one K2 launch for all of them and one `group_sum` call for their sums
+    (each part summed as `ops.tree_sum` sums it) -> list of (1,) points. Any
+    size: the server's audit stacks its MAC and alignment MSMs here."""
     n = points.x.shape[0]
     if n % nparts:
         raise ValueError(f"{n} lanes do not split into {nparts} parts")
     parts = cuda_curve.scalar_mul(ops, points, scalars, nbits)
-    k = n // nparts
-    return [ops.tree_sum(index(parts, slice(i * k, (i + 1) * k)))
-            for i in range(nparts)]
+    sums = cuda_curve.group_sum(ops, parts, nparts)
+    return [index(sums, slice(i, i + 1)) for i in range(nparts)]

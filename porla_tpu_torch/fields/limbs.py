@@ -94,3 +94,12 @@ def tensor_to_ints(t: torch.Tensor) -> list:
 
 def zeros_t(shape=(), device="cpu") -> torch.Tensor:
     return torch.zeros(tuple(shape) + (NLIMBS,), dtype=DTYPE, device=device)
+
+
+def words32(lim: torch.Tensor) -> torch.Tensor:
+    """(…, 16) limbs -> (…, 8) int32 words: word k is limbs 2k, 2k+1,
+    little-endian, the unsigned value kept in the signed type's bits (the
+    kernels' packed form)."""
+    w = lim[..., 0::2] | (lim[..., 1::2] << 16)          # in [0, 2^32)
+    w = w - ((w >> 31) << 32)                            # as signed 32-bit
+    return w.to(torch.int32)

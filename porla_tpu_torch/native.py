@@ -28,7 +28,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("ntt_stage.cu", "scalar_mul.cu", "point_butterfly.cu",
-           "fixed_base.cu", "pip_bucket.cu", "bucket_fold.cu")
+           "fixed_base.cu", "group_sum.cu", "pip_bucket.cu",
+           "bucket_fold.cu")
 HEADERS = ("porla_field.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -67,10 +68,15 @@ KERNELS = {
     "bucket_fold": Kernel(
         "bucket_fold", "porla_tpu_torch/csrc/bucket_fold.cu",
         "porla_tpu/curves/pallas_msm.py:215"),
-    # K3's windowed mode: one template with K3, counted apart
+    # K3's windowed mode: one source with K3, counted apart
     "point_butterfly_window": Kernel(
         "point_butterfly_window", "porla_tpu_torch/csrc/point_butterfly.cu",
         "porla_tpu/curves/pallas_curve.py:645"),
+    # the point sums that followed K2 and K4 in plain torch (the reference
+    # leaves them to its compiler: CurveOps.tree_sum)
+    "group_sum": Kernel(
+        "group_sum", "porla_tpu_torch/csrc/group_sum.cu",
+        "porla_tpu/curves/weierstrass.py:257"),
 }
 
 
@@ -97,7 +103,8 @@ _SIGNATURES = {
     "porla_point_butterfly": [_P] * 17 + [_I64, _P, _P],
     "porla_point_butterfly_window": [_P] * 7 + [_I32] + [_P] * 6
                                     + [_I64, _P, _P],
-    "porla_fixed_base": [_P] * 7 + [_I64, _I32, _I32, _P, _P],
+    "porla_fixed_base": [_P] * 6 + [_I64] + [_I32] * 4 + [_P, _P],
+    "porla_group_sum": [_P] * 7 + [_I64, _I32, _P, _P],
     "porla_pip_bucket": [_P] * 5 + [_I32] * 6 + [_P, _P],
     "porla_bucket_fold": [_P] * 5 + [_I32] * 4 + [_P, _P],
 }

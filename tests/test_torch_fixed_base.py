@@ -1,0 +1,230 @@
+"""K4 `fixed_base` and `group_sum` on the CPU: their plain versions held
+against the golden model and the reference package. The fast tier compares
+with the reference's numpy twins (`CurveOps.scalar_mul` / `tree_sum` with
+`xp=np`); the slow tier with its Pallas `fb_scalar_mul` / `fb_msm_groups`
+in interpret mode (each compile takes about two minutes on the CPU). K4's
+points compare as affine points (a lane split over threads adds in another
+order than the reference's window chain); `group_sum` compares limb for
+limb with `tree_sum`. Tolerance: zero. Inputs from `random.Random` seeds:
+4-8 generators, scalars with the edges 0, 1, n - 1, n and 2^nbits - 1
+where they fit, and infinity, P + P and P + (-P) inside a group."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from porla_tpu.curves import pallas_curve
+from porla_tpu.curves.instances import secp256k1 as jsecp
+from porla_tpu.curves.weierstrass import JacPoint as JJacPoint
+from porla_tpu.fields import limbs as JL
+from porla_tpu.golden import ecc
+from porla_tpu_torch import native
+from porla_tpu_torch.commit import pedersen
+from porla_tpu_torch.curves import cuda_curve as cc
+from porla_tpu_torch.curves.instances import secp256k1
+from porla_tpu_torch.curves.weierstrass import JacPoint, index
+from porla_tpu_torch.fields import limbs as L
+
+torch.set_num_threads(1)     # small tensors; xdist runs files side by side
+
+CUR = ecc.SECP256K1
+slow = pytest.mark.slow
+
+
+@pytest.fixture(autouse=True)
+def _cpu_only(monkeypatch):
+    """CPU tensors must take the plain versions, never the kernels."""
+    def no_kernel():
+        raise AssertionError("a CPU tensor must not load the CUDA kernels")
+    monkeypatch.setattr(native, "library", no_kernel)
+
+
+def _gens(k, seed=3):
+    rng = random.Random(seed)
+    return [ecc.mul(CUR, CUR.g, rng.randrange(1, CUR.n))
+            for _ in range(k - 1)] + [CUR.g]
+
+
+def _scalars(B, nbits, seed=4):
+    rng = random.Random(seed)
+    top = 1 << nbits
+    edges = [0, 1] + [v for v in (CUR.n - 1, CUR.n) if v < top] + [top - 1]
+    return edges + [rng.getrandbits(nbits) for _ in range(B - len(edges))]
+
+
+def _np(p):
+    return JJacPoint(*(L.to_numpy(c) for c in p))
+
+
+def _ref_lanes(gens, sc, nbits):
+    """The reference's numpy twin of K4 per lane: its windowed scalar mul
+    of each lane's base."""
+    jops = jsecp()
+    base = jops.from_affine(np, [gens[i % len(gens)] for i in range(len(sc))])
+    return jops.scalar_mul(np, base, JL.ints_to_limbs(sc), nbits)
+
+
+@pytest.mark.parametrize("nbits", [32, 64, 256])
+def test_fb_scalar_mul_vs_golden_and_reference(nbits):
+    ops = secp256k1()
+    gens = _gens(8)
+    tbl = cc.build_fb_table(ops, gens, nbits=nbits)
+    sc = _scalars(24, nbits)
+    got = ops.to_affine(cc.fb_scalar_mul(tbl, L.ints_to_tensor(sc)))
+    assert got == [ecc.mul(CUR, gens[i % 8], k) for i, k in enumerate(sc)]
+    assert got == jsecp().to_affine(_ref_lanes(gens, sc, nbits))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_fb_lane_split_same_points(split):
+    """Every split of a lane's windows over threads gives the same points
+    (windows past the last are skipped: 7 windows at 28 bits)."""
+    ops = secp256k1()
+    gens = _gens(4)
+    tbl = cc.build_fb_table(ops, gens, nbits=28)
+    sc = _scalars(12, 28)
+    got = cc.fb_lanes_plain(tbl, L.ints_to_tensor(sc), split)
+    assert ops.to_affine(got) == [ecc.mul(CUR, gens[i % 4], k)
+                                  for i, k in enumerate(sc)]
+
+
+@pytest.mark.parametrize("nout", [1, 2, 16])
+def test_fb_msm_groups_vs_golden_and_reference(nout):
+    """nout = 1, 2 and B (groups of one lane), with the edge scalars in the
+    first group: golden sums and the reference's numpy tree sums."""
+    ops, jops = secp256k1(), jsecp()
+    gens = _gens(4)
+    nbits = 64
+    tbl = cc.build_fb_table(ops, gens, nbits=nbits)
+    B = 16
+    sc = _scalars(B, nbits)
+    got = ops.to_affine(cc.fb_msm_groups(tbl, L.ints_to_tensor(sc), nout))
+    g = B // nout
+    assert got == [ecc.msm(CUR, [gens[i % 4] for i in range(o * g, o * g + g)],
+                           sc[o * g:o * g + g]) for o in range(nout)]
+    lanes = _ref_lanes(gens, sc, nbits)
+    ref = [jops.tree_sum(np, JJacPoint(*(c[o * g:o * g + g] for c in lanes)))
+           for o in range(nout)]
+    assert got == [jops.to_affine(r)[0] for r in ref]
+    with pytest.raises(AssertionError):      # non-pow2 group width
+        cc.fb_msm_groups(tbl, L.ints_to_tensor(sc[:12]), nout=2)
+
+
+def test_commit_blocks_vs_golden():
+    """commit_blocks is fb_msm_groups with one group of NG lanes a block."""
+    ops = secp256k1()
+    gens = _gens(8)
+    sc = _scalars(24, 256)
+    got = pedersen.commit_blocks(ops.from_affine(gens),
+                                 L.ints_to_tensor(sc).reshape(3, 8, 16))
+    assert ops.to_affine(got) == [ecc.msm(CUR, gens, sc[8 * b:8 * b + 8])
+                                  for b in range(3)]
+
+
+def _group_points(B, nout, seed=6):
+    """B points in nout groups with infinity, P + P and P + (-P) meeting in
+    the first level of the first group."""
+    rng = random.Random(seed)
+    step = ecc.mul(CUR, CUR.g, rng.randrange(1, CUR.n))
+    pts = [step]
+    while len(pts) < B:                        # distinct multiples of step
+        pts.append(ecc.add(CUR, pts[-1], step))
+    rng.shuffle(pts)
+    half = B // nout // 2
+    if half >= 3:
+        pts[0] = ecc.INF
+        pts[half + 1] = pts[1]
+        pts[half + 2] = ecc.neg(CUR, pts[2])
+    return pts
+
+
+@pytest.mark.parametrize("g,nout", [(1, 3), (3, 2), (5, 2), (8, 2), (300, 1)])
+def test_group_sum_plain_is_tree_sum(g, nout):
+    """group_sum is `ops.tree_sum` of each group limb for limb (odd levels
+    carry their last point), the reference's numpy `tree_sum` too (up to 8
+    points: its numpy arithmetic is slow), and the golden sums."""
+    ops, jops = secp256k1(), jsecp()
+    B = g * nout
+    pts = _group_points(B, nout)
+    P = ops.from_affine(pts)
+    got = cc.group_sum(ops, P, nout)
+    for o in range(nout):
+        grp = index(P, slice(o * g, (o + 1) * g))
+        mine = ops.tree_sum(grp)
+        assert all(torch.equal(a[o:o + 1], b) for a, b in zip(got, mine))
+        if g <= 8:
+            ref = jops.tree_sum(np, _np(grp))
+            assert all(np.array_equal(L.to_numpy(a[o:o + 1]), b)
+                       for a, b in zip(got, ref))
+    assert ops.to_affine(got) == [ecc.msm(CUR, pts[o * g:(o + 1) * g], [1] * g)
+                                  for o in range(nout)]
+
+
+def test_fb_split_rule():
+    assert cc.fb_split(131072) == 1
+    assert cc.fb_split(131072, 128) == 1
+    assert cc.fb_split(32768) == 2
+    assert cc.fb_split(256, 128) == 4
+    assert cc.fb_split(2048) == 4
+    assert cc.fb_split(4096, 256) == 2           # group * split <= 512
+    assert cc.fb_split(2048, 1024) == 1
+
+
+def test_packed_table():
+    """K4's packed table: x then y as 32-bit words of the limbs, infinity
+    (digit 0) as zeros; a point with y = 0 would be refused."""
+    ops = secp256k1()
+    tbl = cc.build_fb_table(ops, _gens(4), nbits=8)
+    w = tbl.packed("cpu")
+    assert w.shape == (2, 16, 4, 16) and w.dtype == torch.int32
+    words = w.to(torch.int64) & 0xFFFFFFFF
+    lim = torch.stack([words & 0xFFFF, words >> 16], -1).flatten(-2)
+    assert torch.equal(lim[..., :16][:, 1:], tbl.coords.x[:, 1:])
+    assert torch.equal(lim[..., 16:][:, 1:], tbl.coords.y[:, 1:])
+    assert not w[:, 0].any()
+    c = tbl.coords
+    bad = cc.FbTable(ops, JacPoint(c.x, torch.zeros_like(c.y), c.z), 8, 4)
+    with pytest.raises(ValueError):
+        bad.packed("cpu")
+
+
+def test_wrappers_reject_bad_operands():
+    ops = secp256k1()
+    P = ops.from_affine(_gens(6))
+    with pytest.raises(ValueError):
+        cc.group_sum(ops, P, 4)                  # 6 points, 4 groups
+    tbl = cc.build_fb_table(ops, _gens(4), nbits=8)
+    with pytest.raises(ValueError):
+        cc.launch_fixed_base(tbl, torch.zeros((8, 16), dtype=torch.int64),
+                             3)                  # 8 lanes, 3 groups
+    with pytest.raises(ValueError):
+        cc.fb_scalar_mul(tbl, torch.zeros((8, 15), dtype=torch.int64))
+
+
+# --- against the Pallas kernels in interpret mode (slow tier) ----------------
+
+@slow
+def test_fb_scalar_mul_vs_pallas_interpret():
+    ops, jops = secp256k1(), jsecp()
+    gens = _gens(4)
+    sc = _scalars(12, 32)
+    jt = pallas_curve.build_fb_table(jops, gens, nbits=32, bt=128)
+    ref = pallas_curve.fb_scalar_mul(jt, JL.ints_to_limbs(sc), interpret=True)
+    got = cc.fb_scalar_mul(cc.build_fb_table(ops, gens, nbits=32),
+                           L.ints_to_tensor(sc))
+    assert ops.to_affine(got) == jops.to_affine(ref)
+
+
+@slow
+def test_fb_msm_groups_vs_pallas_interpret():
+    ops, jops = secp256k1(), jsecp()
+    gens = _gens(4)
+    sc = _scalars(128, 32)
+    jt = pallas_curve.build_fb_table(jops, gens, nbits=32, bt=128)
+    ref = pallas_curve.fb_msm_groups(jt, JL.ints_to_limbs(sc), nout=2,
+                                     interpret=True)
+    got = cc.fb_msm_groups(cc.build_fb_table(ops, gens, nbits=32),
+                           L.ints_to_tensor(sc), 2)
+    assert ops.to_affine(got) == jops.to_affine(ref)
