@@ -13,22 +13,26 @@
    bit-identical limbs or bucket words, so points are the same affine
    points, infinity included) and against exact Python integers on a few
    lanes, including edge lanes. Times both with CUDA events (median after
-   a warm-up). K4 at each of the path's shapes (per lane and in groups at
-   the commit shape, the two IPA shapes, the complements) and at one group
-   too wide for a block (K4 then group_sum); group_sum at the audit's part
-   sums and at 300 lanes. One `fb_msm_groups`, one `commit_blocks` and one
-   `msm_parts` call must be their kernels' launches alone, with no plain
-   torch point arithmetic. K5 and K6 are also held against their plain
-   versions in every mode (affine, Jacobian, first then carry) at 2^14
-   points with runs of the same digit in consecutive steps of a lane; K6
-   means both `bucket_fold` (per lane) and `fold_windows` (with the lane
-   sum), also on a constructed state whose lane sum meets P + P, P + (-P)
-   and infinity.
+   a warm-up). K1 per CRT lane at (1024, 128, 16) (one launch, beside the
+   same stages as one-stage launches) and at n = 2^14 (two passes); K2 GLV
+   at 1024 lanes and at 1 (an update's); K4 at each of the path's shapes
+   (per lane and in groups at the commit shape, the two IPA shapes, the
+   complements) and at one group too wide for a block (K4 then group_sum);
+   group_sum at the audit's part sums and at 300 lanes. One
+   `fb_msm_groups`, one `commit_blocks`, one `msm_parts`, one `point_scale`
+   and one `encode_crt` call must be their kernels' launches alone, with no
+   plain torch point (or, for the last two, field) arithmetic. K5 and K6
+   are also held against their plain versions in every mode (affine,
+   Jacobian, first then carry) at 2^14 points with runs of the same digit
+   in consecutive steps of a lane; K6 means both `bucket_fold` (per lane)
+   and `fold_windows` (with the lane sum), also on a constructed state
+   whose lane sum meets P + P, P + (-P) and infinity.
 3. Runs the IPA protocol at n = 1024 blocks on the card: initialize, an
    audit, 4 updates, another audit (both must verify), then a corrupted
    codeword that the next audit must reject. K1-K4's and group_sum's launch
-   counts must rise during this run. K3 is then checked and timed at the
-   widest butterfly the updates launched.
+   counts must rise during this run, and initialize must launch K1 exactly
+   4 times (two CRT arrays of two lanes). K3 is then checked and timed at
+   the widest butterfly the updates launched.
 Any failed phase raises, so the script exits nonzero and prints no result.
 It exits nonzero when torch finds no CUDA device or the port's package is
 not beside it.
@@ -86,8 +90,17 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# A spin of the card's own clock queued ahead of a timed call (about 1 ms):
+# long enough for the host to queue the call's launches behind it
+SPIN_CYCLES = 2_000_000
+
+
 def timed_ms(fn, device, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of fn() on the card's timeline (CUDA events)."""
+    """Median milliseconds of fn()'s work on the card's timeline (CUDA
+    events). Each timed call is queued behind a spin kernel, so the card is
+    busy while the host prepares the call's launches and the events bracket
+    the device work alone, not the host's launch cost (which the phase
+    spans see)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize(device)
@@ -95,6 +108,7 @@ def timed_ms(fn, device, reps: int, warmup: int = 1) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         stop.record()
@@ -177,83 +191,137 @@ def check_points(ops, name, got, plain, lanes, expect) -> int:
 
 # --- phase 2: the kernels ---------------------------------------------------
 
-def check_k1(dev, rng, n=N_BLOCKS, chunks=128, reps=10):
-    """K1 at (n, 128, 16) per CRT lane, every stage of the CRebuild."""
+def lane_values(rng, mod, count, dev):
+    """`count` values below `mod.n` as (count, 16) limbs on `dev`, drawn as
+    random 16-bit limbs with the top limb below the modulus's."""
+    lim = rng.integers(0, 1 << 16, size=(count, 16), dtype="int64")
+    lim[:, 15] %= mod.n >> 240
+    return torch.from_numpy(lim).to(dev)
+
+
+def exact_encode(ctx, mod, vals):
+    """The CRebuild stages over one column of Python ints (exact)."""
+    from porla_tpu_torch.fields import limbs as L
+    a = list(vals)
+    for s in range(1, ctx.height):
+        m2 = 1 << (s - 1)
+        std = [v % mod.n for v in L.limbs_to_ints(ctx.twiddles(m2).std)]
+        for k in range(len(a)):
+            if k % (2 * m2) < m2:
+                u, t = a[k], a[k + m2] * std[k % m2]
+                a[k], a[k + m2] = (u + t) % mod.n, (u - t) % mod.n
+    return a
+
+
+def check_k1(dev, rng, n=N_BLOCKS, chunks=128, big=1 << 14):
+    """K1 per CRT lane at the CRebuild shape (n, 128, 16): the lane's stages
+    in one launch, bit-identical to the plain stage loop, chunk 0 equal to
+    exact ints (edge values 0, n - 1, 1 in it); timed beside the same
+    stages as one-stage launches of the kernel (the old form's launch
+    count). Then at n = 2^14, C = 128 (two passes) against the plain loop.
+    Returns the kernels line's row, with the 2^14 shape in `shapes`."""
+    from porla_tpu_torch import native
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.ntt import cuda_stage, engine
 
-    ctx = engine.NttContext(n, "ipa")
-    rows, max_err = [], 0
-    for lane, mod in (("p", ctx.mod_p), ("q", ctx.mod_q)):
-        vals = rand_below(rng, mod.n, n * chunks)
-        for k, v in enumerate((0, mod.n - 1, 1, mod.n - 1)):
-            vals[k * chunks] = v                      # edge values
-        a = L.ints_to_tensor(vals, dev).reshape(n, chunks, L.NLIMBS)
-        ref = vals[::chunks]                          # chunk 0 of each row
-        got_a, plain_a = a, a
-        for s in range(1, ctx.height):
-            m2 = 1 << (s - 1)
-            tw = L.to_torch(getattr(ctx.twiddles(m2), "mont_" + lane), dev)
-            got = cuda_stage.ntt_stage(got_a, tw, m2, mod)
-            plain = cuda_stage.stage_plain(plain_a, tw, m2, mod)
-            max_err = max(max_err, limb_err(got, plain))
-            if max_err:
-                raise AssertionError(f"K1 lane {lane} stage {s}: max abs "
-                                     f"err {max_err}")
-            got_a, plain_a = got, plain
-            # exact ints on 8 butterflies of chunk 0
-            std = L.limbs_to_ints(ctx.twiddles(m2).std)
-            out = L.tensor_to_ints(got[:, 0])
-            for k in [j for j in range(n) if j % (2 * m2) < m2][:8]:
-                w = std[k % m2] % mod.n
-                u, t = ref[k], ref[k + m2]
-                if (out[k], out[k + m2]) != ((u + w * t) % mod.n,
-                                             (u - w * t) % mod.n):
-                    raise AssertionError(f"K1 lane {lane} stage {s}: pair "
-                                         f"{k} differs from exact ints")
-            ref = out
-        tw1 = L.to_torch(getattr(ctx.twiddles(1), "mont_" + lane), dev)
-        ms = timed_ms(lambda: cuda_stage.ntt_stage(a, tw1, 1, mod), dev, reps)
-        plain_ms = timed_ms(lambda: cuda_stage.stage_plain(a, tw1, 1, mod),
-                            dev, 3)
-        rows.append((ms, plain_ms))
-    ms = statistics.mean(r[0] for r in rows)
-    plain_ms = statistics.mean(r[1] for r in rows)
-    pairs = n // 2 * chunks
-    b_ms, b_by = bound(pairs * OPS_PER_FE_MUL,
-                       (2 * n * chunks + 1) * FE_BYTES)
-    return dict(name="ntt_stage", shape=[n, chunks, 16], ms=ms,
-                plain_ms=plain_ms, max_abs_err=max_err, bound_ms=b_ms,
-                bound_by=b_by)
+    rows = []
+    for nn in (n, big):
+        ctx = engine.NttContext(nn, "ipa")
+        plan = cuda_stage.pass_plan(nn)
+        for lane, mod in (("p", ctx.mod_p), ("q", ctx.mod_q)):
+            a = lane_values(rng, mod, nn * chunks, dev)
+            for k, v in enumerate((0, mod.n - 1, 1, mod.n - 1)):
+                a[k * chunks] = L.ints_to_tensor([v], dev)[0]  # edge values
+            a = a.reshape(nn, chunks, L.NLIMBS)
+            before = native.launches()["ntt_stage"]
+            got = cuda_stage.encode_lane(ctx, a, mod, lane)
+            if native.launches()["ntt_stage"] - before != len(plan):
+                raise AssertionError(f"K1 at n = {nn}: not {len(plan)} "
+                                     f"launches")
+            err = limb_err(got, cuda_stage.encode_lane_plain(ctx, a, mod,
+                                                             lane))
+            if err:
+                raise AssertionError(f"K1 lane {lane} at n = {nn}: max abs "
+                                     f"err {err} against the stage loop")
+            if nn == n and L.tensor_to_ints(got[:, 0]) != exact_encode(
+                    ctx, mod, L.tensor_to_ints(a[:, 0])):
+                raise AssertionError(f"K1 lane {lane}: chunk 0 differs from "
+                                     f"exact ints")
+            tws = [L.to_torch(getattr(ctx.twiddles(1 << (s - 1)),
+                                      "mont_" + lane), dev)
+                   for s in range(1, ctx.height)]
+
+            def by_stage():
+                x = a
+                for s, tw in enumerate(tws):
+                    x = cuda_stage.ntt_stage(x, tw, 1 << s, mod)
+                return x
+            err = max(err, limb_err(by_stage(), got))
+            if err:
+                raise AssertionError(f"K1 lane {lane} at n = {nn}: one-stage "
+                                     f"launches differ from the fused pass")
+            ms = timed_ms(lambda: cuda_stage.encode_lane(ctx, a, mod, lane),
+                          dev, 10)
+            stage_ms = timed_ms(by_stage, dev, 5)
+            plain_ms = timed_ms(lambda: cuda_stage.encode_lane_plain(
+                ctx, a, mod, lane), dev, 1 if nn > n else 3)
+            stages = ctx.height - 1
+            b_ms, b_by = bound(stages * nn // 2 * chunks * OPS_PER_FE_MUL,
+                               2 * nn * chunks * FE_BYTES
+                               + (nn - 1) * FE_BYTES)
+            rows.append(dict(name="ntt_stage", shape=[nn, chunks, 16],
+                             lane=lane, passes=plan, ms=ms,
+                             one_stage_launches_ms=stage_ms,
+                             plain_ms=plain_ms, max_abs_err=err,
+                             bound_ms=b_ms, bound_by=b_by))
+            emit({"check": "ntt_stage", **{k: v for k, v in rows[-1].items()
+                                           if k != "name"}})
+            del a, got
+    main = [r for r in rows if r["shape"][0] == n]
+    return dict(main[0], lane="p and q (mean)",
+                ms=statistics.mean(r["ms"] for r in main),
+                one_stage_launches_ms=statistics.mean(
+                    r["one_stage_launches_ms"] for r in main),
+                plain_ms=statistics.mean(r["plain_ms"] for r in main),
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                shapes=[{k: r[k] for k in ("shape", "lane", "passes", "ms",
+                                           "one_stage_launches_ms",
+                                           "plain_ms", "bound_ms")}
+                        for r in rows])
 
 
 def check_k2(dev, rng, ops):
     """K2 windowed at the server's audit-MSM shape (2048 lanes, nbits 32)
-    and GLV at the MAC-plane scaling shape (1024 lanes, 256 bits). The
-    timed calls are the launches alone: the GLV split is made once."""
+    and GLV at the MAC-plane scaling shapes (1024 lanes at initialize, 1
+    lane in every update): bit-identical to the plain versions, the edge
+    lanes (infinity, scalars 0, 1, n - 1 or 2^nbits - 1) equal to the golden
+    model. The timed calls are the launches alone: the GLV split is made
+    once. Returns the windowed row and the GLV row (1024 lanes, with both
+    shapes in `shapes`)."""
     from porla_tpu_torch.curves import cuda_curve as cc
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.golden import ecc
 
     cv = ops.curve
-    out = []
-    for B, nbits in ((2 * N_BLOCKS, 32), (N_BLOCKS, 256)):
+    rows = []
+    for B, nbits in ((2 * N_BLOCKS, 32), (N_BLOCKS, 256), (1, 256)):
         pts = rand_points(rng, cv, B)
-        pts[0] = ecc.INF                               # infinity input
         zs = [1 + v for v in rand_below(rng, cv.p - 1, B)]
-        P = jacobian(ops, pts, zs, dev)
         top = (1 << nbits) if nbits < 256 else cv.n
         k = rand_below(rng, top, B)
-        k[1] = 0                                       # zero scalar
-        k[2] = 1
-        k[3] = top - 1                                 # all-ones / n - 1
+        if B > 1:
+            pts[0] = ecc.INF                           # infinity input
+            k[1], k[2], k[3] = 0, 1, top - 1           # 0, 1, n - 1 / 2^nbits - 1
+        P = jacobian(ops, pts, zs, dev)
         sc = L.ints_to_tensor(k, dev)
         got = cc.scalar_mul(ops, P, sc, nbits)
         if nbits == 256:
             g = cc.GlvScalars(ops, sc)
             name = "scalar_mul_glv"
-            plain_fn = lambda: cc.glv_scalar_mul_plain(ops, P, g)
+            plain_fn = lambda: cc.glv_halves_plain(ops, P, g)
             kern_fn = lambda: cc.launch_scalar_mul_glv(ops, P, g)
+            # the function's least work: the interleaved GLV order's shared
+            # doublings, whatever order the kernel takes
             muls = 1 + 2 * TABLE16 + 32 * (4 * DBL + 2 * ADD)
             # points in and out, two 128-bit halves and their sign bits
             nbytes = B * (6 * FE_BYTES + 2 * 16) + (2 * B + 7) // 8
@@ -265,15 +333,23 @@ def check_k2(dev, rng, ops):
             nbytes = B * (6 * FE_BYTES + nbits // 8)
         plain = plain_fn()
         lanes = list(range(min(12, B)))
-        err = check_points(ops, name, got, plain, lanes,
+        err = check_points(ops, f"{name} at {B} lanes", got, plain, lanes,
                            [ecc.mul(cv, pts[i], k[i]) for i in lanes])
         ms = timed_ms(kern_fn, dev, 10)
         plain_ms = timed_ms(plain_fn, dev, 3)
         b_ms, b_by = bound(B * muls * OPS_PER_FE_MUL, nbytes)
-        out.append(dict(name=name, shape=[B, 16], nbits=nbits, ms=ms,
-                        plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
-                        bound_by=b_by))
-    return out
+        rows.append(dict(name=name, shape=[B, 16], nbits=nbits, ms=ms,
+                         plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
+                         bound_by=b_by))
+        emit(dict(check=name, **{k: v for k, v in rows[-1].items()
+                                 if k != "name"}))
+    glv = [r for r in rows if r["name"] == "scalar_mul_glv"]
+    return [rows[0], dict(glv[0], max_abs_err=max(r["max_abs_err"]
+                                                  for r in glv),
+                          shapes={f"{r['shape'][0]} lanes":
+                                  {k: r[k] for k in ("ms", "plain_ms",
+                                                     "bound_ms", "bound_by")}
+                                  for r in glv})]
 
 
 def k3_inputs(dev, rng, ops, B):
@@ -797,37 +873,45 @@ def msm_stages(dev, ops, points, scalars, nbits, plain: bool, bt=None):
 MSM_LAUNCHES = {"pip_bucket": 1, "bucket_fold": 2}
 
 
-def assert_kernels_only(ops, fn, expect=MSM_LAUNCHES, what="one MSM"):
+def assert_kernels_only(ops, fn, expect=MSM_LAUNCHES, what="one MSM",
+                        field_ops=False):
     """Run fn() on operands on the card and require that it took exactly
     the launches `expect` and no plain torch point arithmetic (no CurveOps
-    point op at all). By default fn is one MSM: one K5 launch and one K6
-    call (two launches: the fold and the lane sum)."""
+    point op at all); with `field_ops`, no plain torch field arithmetic
+    either (`fields/mont.py`'s products, sums and differences). By default
+    fn is one MSM: one K5 launch and one K6 call (two launches: the fold and
+    the lane sum)."""
     from porla_tpu_torch import native
     from porla_tpu_torch.curves.weierstrass import CurveOps
+    from porla_tpu_torch.fields import mont
     names = ("add", "madd", "add_raw", "madd_raw", "double", "tree_sum",
              "scalar_mul", "table16")
-    real = {n: getattr(CurveOps, n) for n in names}
+    targets = [(CurveOps, n) for n in names]
+    if field_ops:
+        targets += [(mont, n) for n in ("mont_mul", "add_mod", "sub_mod",
+                                        "neg_mod")]
+    real = {(o, n): getattr(o, n) for o, n in targets}
     calls = []
 
-    def counted(name):
+    def counted(key):
         def f(*a, **k):
-            calls.append(name)
-            return real[name](*a, **k)
+            calls.append(key[1])
+            return real[key](*a, **k)
         return f
 
     before = native.launches()
-    for n in names:
-        setattr(CurveOps, n, counted(n))
+    for key in targets:
+        setattr(*key, counted(key))
     try:
         out = fn()
     finally:
-        for n in names:
-            setattr(CurveOps, n, real[n])
+        for key in targets:
+            setattr(*key, real[key])
     took = {k: v - before[k] for k, v in native.launches().items()
             if v - before[k]}
     if calls or took != expect:
         raise AssertionError(f"{what} took launches {took} and plain torch "
-                             f"point ops {calls}; expected {expect} and none")
+                             f"ops {calls}; expected {expect} and none")
     return out
 
 
@@ -882,6 +966,39 @@ def check_kernels_only(dev, rng, ops):
     return {"check": "kernels_only",
             "calls": ["fb_msm_groups", "commit_blocks x1",
                       "commit_blocks x1024", "msm_parts"]}
+
+
+def check_compute_kernels_only(dev, rng, ops, n=N_BLOCKS):
+    """One `point_scale` call (an update's, 1 lane) and one `encode_crt`
+    call (a CRebuild's data plane at n) run on the card as their kernels
+    alone, with no plain torch point or field arithmetic, and give the
+    golden point and the plain stage loop's limbs."""
+    from porla_tpu_torch.fields import limbs as L
+    from porla_tpu_torch.golden import ecc
+    from porla_tpu_torch.ntt import cuda_stage, engine
+    from porla_tpu_torch.protocol import compute
+
+    cv = ops.curve
+    q = rand_points(rng, cv, 1)
+    M = jacobian(ops, q, [1 + rand_below(rng, cv.p - 1, 1)[0]], dev)
+    v = rand_below(rng, cv.n, 1)[0]
+    got = assert_kernels_only(
+        ops, lambda: compute.point_scale(M, L.ints_to_limbs([v]), ops=ops),
+        {"scalar_mul_glv": 1}, "one point_scale call", field_ops=True)
+    if ops.to_affine(got) != [ecc.mul(cv, q[0], v)]:
+        raise AssertionError("point_scale differs from the golden point")
+    ctx = engine.NttContext(n, "ipa")
+    arr = engine.CrtArray(*(lane_values(rng, m, n * 128, dev).reshape(
+        n, 128, L.NLIMBS) for m in (ctx.mod_p, ctx.mod_q)))
+    got = assert_kernels_only(
+        ops, lambda: compute.encode_crt(ctx.mod_q, ctx, arr),
+        {"ntt_stage": 2 * len(cuda_stage.pass_plan(n))},
+        "one encode_crt call", field_ops=True)
+    want = engine.encode_stages(ctx, arr)
+    if limb_err(got.p, want.p) or limb_err(got.q, want.q):
+        raise AssertionError("encode_crt differs from the plain stage loop")
+    return {"check": "kernels_only",
+            "calls": ["point_scale x1", f"encode_crt n={n}"]}
 
 
 def run_msm(dev, kat_path):
@@ -1200,12 +1317,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     ops = secp256k1()
     k1 = check_k1(dev, rng)
-    emit(dict(check="ntt_stage", launches=native.launches()["ntt_stage"],
-              **{k: v for k, v in k1.items() if k != "name"}))
     k2 = check_k2(dev, rng, ops)
-    for row in k2:
-        emit(dict(check=row["name"], launches=native.launches()[row["name"]],
-                  **{k: v for k, v in row.items() if k != "name"}))
     k3 = check_k3(dev, rng, ops)
     emit(dict(check="point_butterfly",
               launches=native.launches()["point_butterfly"],
@@ -1223,6 +1335,7 @@ def main() -> int:
                       for r in k4_rows})
     gs = check_group_sum(dev, rng, ops)
     emit(check_kernels_only(dev, rng, ops))
+    emit(check_compute_kernels_only(dev, rng, ops))
     emit(check_k5_k6_modes(dev, rng, ops))
     k7 = check_k7(dev, rng, ops)
     emit(dict(check="point_butterfly_window",
@@ -1251,6 +1364,10 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched by the protocol run: "
                              f"{missing}")
+    # initialize's CRebuild encodes two CRT arrays, each lane in one K1 pass
+    init_k1 = phases[0]["launches"]["ntt_stage"]
+    if init_k1 != 4:
+        raise AssertionError(f"initialize launched K1 {init_k1} times, not 4")
 
     msm_runs, msm_total, k5, k6 = run_msm(
         dev, os.path.join(HERE, "tests", "vectors", "secp256k1_kat.json"))

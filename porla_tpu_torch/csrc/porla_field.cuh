@@ -616,33 +616,6 @@ PORLA_PT Pt pt_smul_window(const Pt& p, const int64_t* s, int nbits,
   return acc;
 }
 
-// GLV scalar mul k*P = k1*P + k2*phi(P), phi(x, y) = (beta*x, y), with
-// |k1|, |k2| < 2^128 given as magnitudes k1, k2 and sign flags g1, g2.
-// 32 windows of (4 doublings + 2 table adds).
-PORLA_PT Pt pt_smul_glv(const Pt& p, const int64_t* k1, const int64_t* k2,
-                        int64_t g1, int64_t g2, const Fe& beta,
-                        const Mod& M) {
-  Pt p2;
-  p2.x = fe_mul(p.x, beta, M);
-  p2.y = p.y;
-  p2.z = p.z;
-  Pt q1 = pt_sel(g1 != 0, pt_neg(p, M), p);
-  Pt q2 = pt_sel(g2 != 0, pt_neg(p2, M), p2);
-  Pt t1[16], t2[16];
-  pt_table16(t1, q1, M);
-  pt_table16(t2, q2, M);
-  Pt acc = pt_inf(M);
-  for (int w = 31; w >= 0; w--) {
-    acc = pt_dbl(acc, M);
-    acc = pt_dbl(acc, M);
-    acc = pt_dbl(acc, M);
-    acc = pt_dbl(acc, M);
-    acc = pt_add(acc, t1[nibble(k1, w)], M);
-    acc = pt_add(acc, t2[nibble(k2, w)], M);
-  }
-  return acc;
-}
-
 // Host-side argument packing shared by the C entry points
 static inline Mod mod_from_words(const uint32_t* w17) {
   Mod m;

@@ -9,9 +9,11 @@ for lane, so the outputs are bit-identical Jacobian limbs); a CUDA tensor
 launches the kernel or raises.
 
 - K2 (`csrc/scalar_mul.cu`): windowed mode for nbits < 256 (the audit
-  MSMs run at nbits = 32) and GLV mode for nbits = 256, with the scalar
-  split done on the host (`curves/glv.py`); each mode has its own launch
-  count.
+  MSMs run at nbits = 32; `CurveOps.scalar_mul`'s limbs) and GLV mode for
+  nbits = 256, with the scalar split done on the host (`curves/glv.py`) and
+  the halves as two chains added at the end (`glv_halves_plain`'s limbs);
+  each mode has its own launch count. K2 and K3 share the cooperative
+  arithmetic of `csrc/porla_coop.cuh` (8 threads a field element).
 - K3 and K7 (`csrc/point_butterfly.cu`): (m0 + s*m1, m0 - s*m1) with the
   GLV halves k1*q1 and k2*q2 as two chains added at the end for 256-bit
   scalars (K3) and the windowed scalar mul for every other width (K7,
@@ -33,7 +35,7 @@ import torch
 from porla_tpu_torch import native
 from porla_tpu_torch.curves import glv
 from porla_tpu_torch.curves.weierstrass import (CurveOps, JacPoint, index,
-                                                lookup, select)
+                                                select)
 from porla_tpu_torch.fields import limbs as L
 from porla_tpu_torch.fields import mont
 from porla_tpu_torch.golden import ecc
@@ -91,28 +93,24 @@ def _check_glv(g: GlvScalars, B: int, device) -> None:
         raise ValueError(f"GLV split does not match {B} lanes")
 
 
-def glv_scalar_mul_plain(ops: CurveOps, p: JacPoint, g: GlvScalars) -> JacPoint:
-    """k*P = k1*(±P) + k2*(±phi(P)), 32 windows of (4 doublings + 2 table
-    adds) — the plain version of K2's GLV mode."""
+def glv_halves_plain(ops: CurveOps, p: JacPoint, g: GlvScalars) -> JacPoint:
+    """k*P as k1*(±P) + k2*(±phi(P)): each half by the windowed scalar mul
+    over 128 bits (its own chain of 32 windows of 4 doublings and one table
+    add), then one full-cased add — the order of K2's GLV mode and of K3,
+    and the plain version of K2's GLV mode."""
     p2 = JacPoint(mont.mont_mul(p.x, g.beta.expand_as(p.x), ops.fp), p.y, p.z)
     q1 = select(g.g1 != 0, ops.neg(p), p)
     q2 = select(g.g2 != 0, ops.neg(p2), p2)
-    t1 = ops.table16(q1)
-    t2 = ops.table16(q2)
-    acc = ops.infinity(p.batch_shape, p.device)
-    for w in reversed(range(32)):
-        for _ in range(4):
-            acc = ops.double(acc)
-        acc = ops.add(acc, lookup(t1, _nibble(g.k1, w)))
-        acc = ops.add(acc, lookup(t2, _nibble(g.k2, w)))
-    return acc
+    q = JacPoint(*(torch.stack([a, b]) for a, b in zip(q1, q2)))
+    r = ops.scalar_mul(q, torch.stack([g.k1, g.k2]), 128)
+    return ops.add(index(r, 0), index(r, 1))
 
 
 # --- K2 scalar_mul ------------------------------------------------------------
 
 def scalar_mul_plain(ops: CurveOps, p: JacPoint, scalars, nbits: int = 256):
     if nbits == 256:
-        return glv_scalar_mul_plain(ops, p, GlvScalars(ops, scalars))
+        return glv_halves_plain(ops, p, GlvScalars(ops, scalars))
     return ops.scalar_mul(p, scalars, nbits)
 
 
@@ -133,7 +131,7 @@ def scalar_mul(ops: CurveOps, p: JacPoint, scalars: torch.Tensor,
 
 
 def launch_scalar_mul_window(ops: CurveOps, p: JacPoint, scalars, nbits):
-    """K2's windowed mode on checked CUDA operands."""
+    """K2's windowed mode on checked CUDA operands: 8 threads a lane."""
     B = p.x.shape[0]
     dev = p.x.device
     lib = native.library()
@@ -148,7 +146,8 @@ def launch_scalar_mul_window(ops: CurveOps, p: JacPoint, scalars, nbits):
 
 
 def launch_scalar_mul_glv(ops: CurveOps, p: JacPoint, g: GlvScalars):
-    """K2's GLV mode on checked CUDA operands and a host split `g`."""
+    """K2's GLV mode on checked CUDA operands and a host split `g`: 16
+    threads a lane, each GLV half on 8 threads."""
     B = p.x.shape[0]
     dev = p.x.device
     _check_glv(g, B, dev)
@@ -165,18 +164,6 @@ def launch_scalar_mul_glv(ops: CurveOps, p: JacPoint, g: GlvScalars):
 
 
 # --- K3 point_butterfly, K7 point_butterfly_window ---------------------------
-
-def glv_halves_plain(ops: CurveOps, p: JacPoint, g: GlvScalars) -> JacPoint:
-    """k*P as k1*(±P) + k2*(±phi(P)): each half by the windowed scalar mul
-    over 128 bits (its own chain of 32 windows of 4 doublings and one table
-    add), then one full-cased add — K3's order."""
-    p2 = JacPoint(mont.mont_mul(p.x, g.beta.expand_as(p.x), ops.fp), p.y, p.z)
-    q1 = select(g.g1 != 0, ops.neg(p), p)
-    q2 = select(g.g2 != 0, ops.neg(p2), p2)
-    q = JacPoint(*(torch.stack([a, b]) for a, b in zip(q1, q2)))
-    r = ops.scalar_mul(q, torch.stack([g.k1, g.k2]), 128)
-    return ops.add(index(r, 0), index(r, 1))
-
 
 def glv_butterfly_plain(ops: CurveOps, m0: JacPoint, m1: JacPoint,
                         g: GlvScalars):

@@ -30,7 +30,7 @@ BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("ntt_stage.cu", "scalar_mul.cu", "point_butterfly.cu",
            "fixed_base.cu", "group_sum.cu", "pip_bucket.cu",
            "bucket_fold.cu")
-HEADERS = ("porla_field.cuh",)
+HEADERS = ("porla_field.cuh", "porla_coop.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -49,7 +49,7 @@ KERNELS = {
     "ntt_stage": Kernel(
         "ntt_stage", "porla_tpu_torch/csrc/ntt_stage.cu",
         "porla_tpu/ntt/pallas_stage.py:165"),
-    # K2's two modes: one template in one source, counted apart
+    # K2's two modes: two kernels in one source, counted apart
     "scalar_mul_window": Kernel(
         "scalar_mul_window", "porla_tpu_torch/csrc/scalar_mul.cu",
         "porla_tpu/curves/pallas_curve.py:637"),
@@ -96,7 +96,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _SIGNATURES = {
-    "porla_ntt_stage": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
+    "porla_ntt_pass": [_P, _P, _P, _I64, _I64, _I32, _I64, _I32, _P, _P],
     "porla_scalar_mul_window": [_P, _P, _P, _P, _I32, _P, _P, _P, _I64, _P, _P],
     "porla_scalar_mul_glv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I64, _P, _P],

@@ -126,6 +126,7 @@ class NttContext:
         self.curve_ops = (_ci.secp256k1() if scheme == "ipa"
                           else _ci.bn254())
         self._tw_cache: dict[int, Twiddles] = {}
+        self._stage_tables: dict = {}
 
     def twiddles(self, length: int) -> Twiddles:
         """v_j = w^(n*j/length) for j in [0, length)."""
@@ -136,6 +137,21 @@ class NttContext:
             tw = self._make_tw(vals)
             self._tw_cache[length] = tw
         return tw
+
+    def stage_table(self, lane: str, device) -> torch.Tensor:
+        """Every stage's Montgomery twiddles of one CRT lane ("p" or "q") as
+        one (n - 1, 8) int32 word table (`limbs.words32`), stage s's
+        twiddle j at row 2^(s-1) - 1 + j: K1's table, built once on the host
+        and kept per device."""
+        key = (lane, str(device))
+        t = self._stage_tables.get(key)
+        if t is None:
+            rows = [getattr(self.twiddles(1 << s), "mont_" + lane)
+                    for s in range(self.height - 1)]
+            lim = np.concatenate(rows) if rows else L.zeros((0,))
+            t = self._stage_tables[key] = \
+                L.words32(L.to_torch(lim)).contiguous().to(device)
+        return t
 
     def _make_tw(self, vals: list[int]) -> Twiddles:
         std = L.ints_to_limbs(vals)

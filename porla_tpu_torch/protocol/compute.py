@@ -51,8 +51,8 @@ def scale_crt(mod_q, a: CrtArray, tw: Twiddles) -> CrtArray:
 
 def encode_crt(mod_q, ctx, arr: CrtArray) -> CrtArray:
     """All CRebuild butterfly stages s = 1..height-1 over an (n, C, 16) CRT
-    array (reference stage loop, Server.hpp:1548-1687), one K1 launch per
-    stage and lane."""
+    array (reference stage loop, Server.hpp:1548-1687): K1 per lane, one
+    launch for every pass of `cuda_stage.pass_plan(n)` (one at n <= 1024)."""
     with trace.span("encode_crt", n=ctx.n):
         return CrtArray(cuda_stage.encode_lane(ctx, arr.p, MOD_P, "p"),
                         cuda_stage.encode_lane(ctx, arr.q, mod_q, "q"))

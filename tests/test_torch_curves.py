@@ -176,12 +176,13 @@ def test_golden_mul_matches_reference(cv):
 
 def test_passed_in_glv_split():
     """A GLV split made once (as chip_smoke.py does to time the kernels
-    alone) gives, through the plain GLV bodies, the wrappers' outputs."""
+    alone) gives, through the plain GLV bodies (K2's: `glv_halves_plain`),
+    the wrappers' outputs."""
     ops = secp256k1()
     p = ops.from_affine(_pts(3) + [ecc.INF])
     sc = L.ints_to_tensor([rng.randrange(CUR.n) for _ in range(4)])
     g = cc.GlvScalars(ops, sc)
-    a = cc.glv_scalar_mul_plain(ops, p, g)
+    a = cc.glv_halves_plain(ops, p, g)
     b = cc.scalar_mul(ops, p, sc, 256)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     hi, lo = cc.glv_butterfly_plain(ops, p, p, g)

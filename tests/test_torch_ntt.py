@@ -1,7 +1,11 @@
 """K1's plain version and the port's NTT engine vs the reference package:
 porla_tpu.ntt.engine.encode_stages (numpy) in both CRT lanes with
 `hardened` off and on, and one fused Pallas stage
-(pallas_stage.butterfly_stage, interpret mode). Tolerance: zero."""
+(pallas_stage.butterfly_stage, interpret mode); K1's host side: its pass
+plan and its packed twiddle table. Tolerance: zero."""
+
+import os
+import re
 
 import random
 
@@ -21,7 +25,7 @@ torch.set_num_threads(1)     # small tensors; xdist runs files side by side
 
 
 @pytest.mark.parametrize("hardened", [False, True])
-@pytest.mark.parametrize("n", [2, 16])
+@pytest.mark.parametrize("n", [2, 16, 256])
 def test_encode_matches_reference(n, hardened):
     rng = random.Random(n + hardened)
     C = 3
@@ -33,7 +37,7 @@ def test_encode_matches_reference(n, hardened):
     aq = JL.ints_to_limbs(vq).reshape(n, C, 16)
     want = jeng.encode_stages(np, jctx, jeng.CrtArray(ap, aq))
     arr = engine.CrtArray(L.to_torch(ap), L.to_torch(aq))
-    # the K1 path on the CPU (the wrapper's plain version, stage by stage)
+    # the K1 path on the CPU (the wrapper's plain version, the stage loop)
     got = compute.encode_crt(ctx.mod_q, ctx, arr)
     assert np.array_equal(L.to_numpy(got.p), want.p)
     assert np.array_equal(L.to_numpy(got.q), want.q)
@@ -109,3 +113,69 @@ def test_wrapper_checks_and_cpu_route(monkeypatch):
                              ctx.mod_p)                  # 2*m2 must tile n
     with pytest.raises(ValueError):
         cuda_stage.ntt_stage(a.to("meta"), tw.to("meta"), 2, ctx.mod_p)
+
+
+def test_pass_plan_covers_every_stage_once():
+    """The passes cover the stages 1 .. height-1 once each, in order, for
+    n = 2 .. 2^16, and every pass's groups (2^(s1-s0+1) rows) fit a
+    block's shared memory, whose size is the kernel's own constant."""
+    src = open(os.path.join(os.path.dirname(native.__file__), "csrc",
+                            "ntt_stage.cu")).read()
+    lg = int(re.search(r"#define NTT_BLOCK_LG (\d+)", src).group(1))
+    assert cuda_stage.BLOCK_LG == lg
+    for e in range(1, 17):
+        n = 1 << e
+        plan = cuda_stage.pass_plan(n)
+        stages = [s for s0, s1 in plan for s in range(s0, s1 + 1)]
+        assert stages == list(range(1, engine.NttContext(n).height))
+        assert all(1 <= s1 - s0 + 1 <= lg for s0, s1 in plan)
+        assert len(plan) == 1 if n <= 1 << lg else len(plan) > 1
+    assert cuda_stage.pass_plan(1 << 14) == [(1, 10), (11, 14)]
+
+
+@pytest.mark.parametrize("hardened", [False, True])
+def test_stage_table_unpacks_to_twiddles(hardened):
+    """K1's packed table (one per lane, every stage's twiddles, stage s's
+    twiddle j at row 2^(s-1) - 1 + j) unpacks to `ctx.twiddles(m2)`'s
+    Montgomery forms and to the reference's."""
+    n = 64
+    ctx = engine.NttContext(n, "ipa", hardened=hardened)
+    jctx = jeng.NttContext(n, "ipa", hardened=hardened)
+    for lane in ("p", "q"):
+        words = ctx.stage_table(lane, "cpu")
+        assert words.dtype == torch.int32 and words.shape == (n - 1, 8)
+        assert words.is_contiguous()
+        w = words.to(torch.int64) & 0xFFFFFFFF
+        lim = torch.stack([w & 0xFFFF, w >> 16], -1).reshape(n - 1, 16)
+        assert ctx.stage_table(lane, "cpu") is words        # kept
+        for s in range(ctx.height - 1):
+            m2 = 1 << s
+            rows = L.to_numpy(lim[m2 - 1:2 * m2 - 1])
+            assert np.array_equal(rows, getattr(ctx.twiddles(m2),
+                                                "mont_" + lane))
+            assert np.array_equal(rows, getattr(jctx.twiddles(m2),
+                                                "mont_" + lane))
+
+
+def test_encode_lane_checks_and_cpu_route(monkeypatch):
+    """encode_lane on CPU tensors is the plain stage loop (no kernel), and
+    refuses arrays that are not n rows of 16 limbs."""
+    ctx = engine.NttContext(8, "ipa")
+    rng = random.Random(3)
+    a = L.ints_to_tensor([rng.randrange(ctx.mod_q.n) for _ in range(16)]
+                         ).reshape(8, 2, 16)
+
+    def no_kernel():
+        raise AssertionError("a CPU tensor must not load the CUDA kernels")
+    monkeypatch.setattr(native, "library", no_kernel)
+    before = native.launches()["ntt_stage"]
+    got = cuda_stage.encode_lane(ctx, a, ctx.mod_q, "q")
+    assert torch.equal(got, engine.encode_stages(
+        ctx, engine.CrtArray(a, a)).q)
+    assert native.launches()["ntt_stage"] == before
+    with pytest.raises(ValueError):
+        cuda_stage.encode_lane(ctx, a[:4], ctx.mod_q, "q")
+    with pytest.raises(ValueError):
+        cuda_stage.encode_lane(ctx, a[..., :8], ctx.mod_q, "q")
+    with pytest.raises(ValueError):
+        cuda_stage.encode_lane(ctx, a.to("meta"), ctx.mod_q, "q")
