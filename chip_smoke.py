@@ -27,12 +27,20 @@
    in consecutive steps of a lane; K6 means both `bucket_fold` (per lane)
    and `fold_windows` (with the lane sum), also on a constructed state
    whose lane sum meets P + P, P + (-P) and infinity.
-3. Runs the IPA protocol at n = 1024 blocks on the card: initialize, an
-   audit, 4 updates, another audit (both must verify), then a corrupted
-   codeword that the next audit must reject. K1-K4's and group_sum's launch
-   counts must rise during this run, and initialize must launch K1 exactly
-   4 times (two CRT arrays of two lanes). K3 is then checked and timed at
-   the widest butterfly the updates launched.
+   The KZG path's kernels are held the same way on BN254 G1 operands at
+   its shapes: K1's q lane mod BN254's r, K2 in both modes, K3, K4 over the
+   SRS (the server's commitments, 131072 lanes in 1024 groups and 128 in
+   one) and on h (the client's complements), group_sum at the audit's parts.
+3. Runs the protocol at n = 1024 blocks on the card, first the IPA scheme
+   (secp256k1), then the KZG scheme (BN254): initialize, an audit, 4
+   updates, another audit (both must verify), then a corrupted codeword
+   that the next audit must reject; then a checkpoint, a new server
+   restored from it on the card, and an audit, an update and an audit
+   against it that verify. In each scheme K1-K4's and group_sum's launch
+   counts must rise up to the second audit, and initialize must launch K1
+   exactly 4 times (two CRT arrays of two lanes). K3 is then checked and
+   timed at the widest butterfly the IPA updates launched.
+4. Runs the MSM entry point (see `run_msm`).
 Any failed phase raises, so the script exits nonzero and prints no result.
 It exits nonzero when torch finds no CUDA device or the port's package is
 not beside it.
@@ -213,22 +221,27 @@ def exact_encode(ctx, mod, vals):
     return a
 
 
-def check_k1(dev, rng, n=N_BLOCKS, chunks=128, big=1 << 14):
+def check_k1(dev, rng, n=N_BLOCKS, chunks=128, big=1 << 14, scheme="ipa",
+             lanes=("p", "q")):
     """K1 per CRT lane at the CRebuild shape (n, 128, 16): the lane's stages
     in one launch, bit-identical to the plain stage loop, chunk 0 equal to
     exact ints (edge values 0, n - 1, 1 in it); timed beside the same
     stages as one-stage launches of the kernel (the old form's launch
-    count). Then at n = 2^14, C = 128 (two passes) against the plain loop.
-    Returns the kernels line's row, with the 2^14 shape in `shapes`."""
+    count). Then at n = `big`, C = 128 (two passes at 2^14) against the
+    plain loop. The q lane is mod the scheme's group order (secp256k1's n,
+    BN254's r). Returns the kernels line's row, with the `big` shape in
+    `shapes`."""
     from porla_tpu_torch import native
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.ntt import cuda_stage, engine
 
     rows = []
-    for nn in (n, big):
-        ctx = engine.NttContext(nn, "ipa")
+    for nn in sorted({n, big}):
+        ctx = engine.NttContext(nn, scheme)
         plan = cuda_stage.pass_plan(nn)
         for lane, mod in (("p", ctx.mod_p), ("q", ctx.mod_q)):
+            if lane not in lanes:
+                continue
             a = lane_values(rng, mod, nn * chunks, dev)
             for k, v in enumerate((0, mod.n - 1, 1, mod.n - 1)):
                 a[k * chunks] = L.ints_to_tensor([v], dev)[0]  # edge values
@@ -270,7 +283,7 @@ def check_k1(dev, rng, n=N_BLOCKS, chunks=128, big=1 << 14):
                                2 * nn * chunks * FE_BYTES
                                + (nn - 1) * FE_BYTES)
             rows.append(dict(name="ntt_stage", shape=[nn, chunks, 16],
-                             lane=lane, passes=plan, ms=ms,
+                             lane=lane, modulus=mod.name, passes=plan, ms=ms,
                              one_stage_launches_ms=stage_ms,
                              plain_ms=plain_ms, max_abs_err=err,
                              bound_ms=b_ms, bound_by=b_by))
@@ -278,7 +291,7 @@ def check_k1(dev, rng, n=N_BLOCKS, chunks=128, big=1 << 14):
                                            if k != "name"}})
             del a, got
     main = [r for r in rows if r["shape"][0] == n]
-    return dict(main[0], lane="p and q (mean)",
+    return dict(main[0], lane=" and ".join(lanes) + " (mean)",
                 ms=statistics.mean(r["ms"] for r in main),
                 one_stage_launches_ms=statistics.mean(
                     r["one_stage_launches_ms"] for r in main),
@@ -454,22 +467,34 @@ FB_SHAPES = (
 )
 
 
-def check_k4(dev, rng, ops):
-    """K4 at each of FB_SHAPES: bit-identical to its plain version, the
-    edge lanes (or the first groups) equal to the golden model, timed with
-    its plain version and bound. The wide group must be one K4 launch and
-    one group_sum, with no plain torch point op. Returns one row per
-    shape."""
+# the KZG path's shapes of K4, on BN254: the server's SRS commitments
+# (align_MAC over 1024 blocks' worth of lanes, and commit_msm's C and H),
+# and the client's complements on h
+KZG_FB_SHAPES = (
+    ("commit_blocks", N_BLOCKS * 128, N_BLOCKS, 128, 256),
+    ("commit_msm", 128, 1, 128, 256),
+    ("complements", 2 * N_BLOCKS, 0, 1, 128),
+)
+
+
+def check_k4(dev, rng, ops, shapes=FB_SHAPES, gens_aff=None):
+    """K4 at each of `shapes` over the bases `gens_aff` (the IPA generators
+    by default; a random point where a shape has one base): bit-identical
+    to its plain version, the edge lanes (or the first groups) equal to the
+    golden model, timed with its plain version and bound. The wide group
+    must be one K4 launch and one group_sum, with no plain torch point op.
+    Returns one row per shape."""
     from porla_tpu_torch.commit import pedersen
     from porla_tpu_torch.curves import cuda_curve as cc
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.golden import ecc
 
     cv = ops.curve
-    gens, _, gens_aff = pedersen.ipa_generators()
+    if gens_aff is None:
+        gens_aff = pedersen.ipa_generators()[2]
     h = rand_points(rng, cv, 1)
     rows = []
-    for name, B, nout, ng, nbits in FB_SHAPES:
+    for name, B, nout, ng, nbits in shapes:
         bases = gens_aff[:ng] if ng > 1 else h
         tbl = cc.fb_table_for(ops, ops.from_affine(bases), nbits)
         k = fb_edge_scalars(rng, B, nbits, cv.n)
@@ -942,7 +967,8 @@ def check_kernels_only(dev, rng, ops):
         kb = rand_below(rng, cv.n, nb * 128)
         sc = L.ints_to_tensor(kb, dev).reshape(nb, 128, 16)
         got = assert_kernels_only(
-            ops, lambda: pedersen.commit_blocks(gens, sc), {"fixed_base": 1},
+            ops, lambda: pedersen.commit_blocks(gens, sc, ops),
+            {"fixed_base": 1},
             f"one commit_blocks call of {nb} blocks")
         want = [ecc.msm(cv, gens_aff, kb[b * 128:(b + 1) * 128])
                 for b in (0, nb - 1)]
@@ -1201,10 +1227,13 @@ def check_msm_parts(dev, ops):
 
 # --- phase 3: the protocol --------------------------------------------------
 
-def run_protocol(dev, store_dir, n=N_BLOCKS, n_updates=N_UPDATES):
-    """initialize -> audit -> updates -> audit -> corrupted audit, on
-    `dev`. Returns (per-phase records, launches over the whole cycle, the
-    (phase, lanes) of every K3 launch)."""
+def run_protocol(dev, store_dir, scheme="ipa", n=N_BLOCKS,
+                 n_updates=N_UPDATES):
+    """initialize -> audit -> updates -> audit -> corrupted audit, then
+    checkpoint -> restore into a new server -> audit -> update -> audit, on
+    `dev`, in `scheme`. Returns (per-phase records, launches over the
+    cycle up to the second audit, the (phase, lanes) of every K3
+    launch)."""
     import numpy as np
     from porla_tpu_torch import native
     from porla_tpu_torch.config import PorlaConfig
@@ -1224,7 +1253,7 @@ def run_protocol(dev, store_dir, n=N_BLOCKS, n_updates=N_UPDATES):
         if nbits == 256:
             k3_lanes.append((current[0], m0.x.shape[0]))
         return butterfly(ops, m0, m1, scalars, nbits)
-    cfg = PorlaConfig(scheme="ipa", storage_dir=store_dir)
+    cfg = PorlaConfig(scheme=scheme, storage_dir=store_dir)
     server = PorlaServer(cfg, device=dev)
     client = PorlaClient(cfg, InProcTransport(server), data_seed=seed(),
                          device=dev)
@@ -1237,11 +1266,15 @@ def run_protocol(dev, store_dir, n=N_BLOCKS, n_updates=N_UPDATES):
         fn()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        rec = {"phase": name, "s": time.perf_counter() - t0,
+        rec = {"phase": name, "scheme": scheme,
+               "s": time.perf_counter() - t0,
                "launches": {k: v - before[k]
                             for k, v in native.launches().items()}}
         phases.append(rec)
         emit(rec)
+
+    def update():
+        client.update(client.write_step % client.num_blocks + 1)
 
     cc.point_butterfly = recorded
     try:
@@ -1249,8 +1282,7 @@ def run_protocol(dev, store_dir, n=N_BLOCKS, n_updates=N_UPDATES):
         phase("initialize", lambda: client.initialize(n))
         phase("audit", lambda: client.audit(seed=seed()))
         for _ in range(n_updates):
-            phase("update", lambda: client.update(
-                client.write_step % client.num_blocks + 1))
+            phase("update", update)
         phase("audit", lambda: client.audit(seed=seed()))
         total = native.launches()
     finally:
@@ -1282,7 +1314,73 @@ def run_protocol(dev, store_dir, n=N_BLOCKS, n_updates=N_UPDATES):
 
     phase("audit_corrupted", corrupted)
     side.data = orig
+
+    # checkpoint and resume: a new server restored on the card from the
+    # files takes over, and the client goes on with it
+    def restore():
+        client.transport = InProcTransport(PorlaServer.restore(cfg,
+                                                               device=dev))
+    phase("checkpoint", server.save_checkpoint)
+    phase("restore", restore)
+    phase("resume_audit", lambda: client.audit(seed=seed()))
+    phase("resume_update", update)
+    phase("resume_audit", lambda: client.audit(seed=seed()))
     return phases, total, k3_lanes
+
+
+def check_protocol_launches(scheme, phases, total) -> None:
+    """K1-K4 and group_sum were launched by the cycle, and initialize
+    launched K1 exactly 4 times (two CRT arrays, one K1 pass a lane)."""
+    missing = [k for k in PROTOCOL_KERNELS if total[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the {scheme} protocol "
+                             f"run: {missing}")
+    init_k1 = phases[0]["launches"]["ntt_stage"]
+    if init_k1 != 4:
+        raise AssertionError(f"{scheme} initialize launched K1 {init_k1} "
+                             f"times, not 4")
+
+
+PROTOCOL_KERNELS = ("ntt_stage", "scalar_mul_window", "scalar_mul_glv",
+                    "point_butterfly", "fixed_base", "group_sum")
+
+
+def check_bn254(dev, rng) -> dict:
+    """Every kernel of the KZG path held on BN254 G1 operands at that
+    path's shapes, as the secp256k1 checks hold them: K1's q lane mod r at
+    (1024, 128, 16), K2 in both modes, K3 at 1024 lanes, K4 at
+    KZG_FB_SHAPES over the SRS of a random tau (not the protocol's, so the
+    KZG cycle builds its own table), group_sum at the audit's parts.
+    Returns kernel name -> its BN254 row."""
+    from porla_tpu_torch.commit import kzg
+    from porla_tpu_torch.config import NUM_CHUNKS
+    from porla_tpu_torch.curves.instances import bn254
+    from porla_tpu_torch.fields.constants import BN254_R
+
+    ops = bn254()
+    rows = {"ntt_stage": check_k1(dev, rng, big=N_BLOCKS, scheme="kzg",
+                                  lanes=("q",))}
+    window, glv = check_k2(dev, rng, ops)
+    rows[window["name"]], rows[glv["name"]] = window, glv
+    rows["point_butterfly"] = check_k3(dev, rng, ops)
+    srs = kzg.KzgSrs.from_tau(rand_below(rng, BN254_R, 1)[0], NUM_CHUNKS)
+    k4_rows = check_k4(dev, rng, ops, KZG_FB_SHAPES, srs.g1_powers)
+    rows["fixed_base"] = k4_row(k4_rows)
+    rows["group_sum"] = check_group_sum(dev, rng, ops)
+    for name, row in rows.items():
+        emit(dict(check=f"{name} bn254", **{k: v for k, v in row.items()
+                                            if k != "name"}))
+    return rows
+
+
+def k4_row(k4_rows) -> dict:
+    """The kernels line's K4 row: the commit_blocks shape (initialize's,
+    or the KZG server's), with every shape beside it."""
+    return dict(next(r for r in k4_rows if r["case"] == "commit_blocks"),
+                shapes={r["case"]: {k: r[k] for k in ("shape", "nout", "nbits",
+                                                      "ms", "plain_ms",
+                                                      "bound_ms", "split")}
+                        for r in k4_rows})
 
 
 def main() -> int:
@@ -1326,13 +1424,7 @@ def main() -> int:
     for row in k4_rows:
         emit(dict(check="fixed_base", **{k: v for k, v in row.items()
                                          if k != "name"}))
-    # the kernels line's K4 row: initialize's commit_blocks shape, with
-    # every shape beside it
-    k4 = dict(next(r for r in k4_rows if r["case"] == "commit_blocks"),
-              shapes={r["case"]: {k: r[k] for k in ("shape", "nout", "nbits",
-                                                    "ms", "plain_ms",
-                                                    "bound_ms", "split")}
-                      for r in k4_rows})
+    k4 = k4_row(k4_rows)
     gs = check_group_sum(dev, rng, ops)
     emit(check_kernels_only(dev, rng, ops))
     emit(check_compute_kernels_only(dev, rng, ops))
@@ -1340,34 +1432,30 @@ def main() -> int:
     k7 = check_k7(dev, rng, ops)
     emit(dict(check="point_butterfly_window",
               **{k: v for k, v in k7.items() if k != "name"}))
+    bn = check_bn254(dev, rng)
 
     # each path is driven with the counts set to 0 just before it and read
     # just after; a kernel must be launched by the path that owns it
     store = os.path.join(HERE, "porla_store_chip_smoke")
-    shutil.rmtree(store, ignore_errors=True)
-    trace.reset()
-    trace.enable()
-    try:
-        phases, total, k3_lanes = run_protocol(dev, store)
-    finally:
-        trace.enable(False)
+    runs = {}
+    for scheme in ("ipa", "kzg"):
         shutil.rmtree(store, ignore_errors=True)
-    # host-clock spans of the protocol run (a span ends where its result
-    # reaches the host, so it covers the card's work it waited for)
-    for line in trace.report().splitlines():
-        if "count" not in line and "gauge" not in line:
-            print("trace", line, flush=True)
-    protocol_kernels = ("ntt_stage", "scalar_mul_window", "scalar_mul_glv",
-                        "point_butterfly", "fixed_base", "group_sum")
+        trace.reset()
+        trace.enable()
+        try:
+            runs[scheme] = run_protocol(dev, store, scheme)
+        finally:
+            trace.enable(False)
+            shutil.rmtree(store, ignore_errors=True)
+        # host-clock spans of the protocol run (a span ends where its result
+        # reaches the host, so it covers the card's work it waited for)
+        for line in trace.report().splitlines():
+            if "count" not in line and "gauge" not in line:
+                print("trace", scheme, line, flush=True)
+        check_protocol_launches(scheme, *runs[scheme][:2])
+    phases, total, k3_lanes = runs["ipa"]
+    kzg_phases, kzg_total, _ = runs["kzg"]
     msm_kernels = ("pip_bucket", "bucket_fold", "point_butterfly_window")
-    missing = [k for k in protocol_kernels if total[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the protocol run: "
-                             f"{missing}")
-    # initialize's CRebuild encodes two CRT arrays, each lane in one K1 pass
-    init_k1 = phases[0]["launches"]["ntt_stage"]
-    if init_k1 != 4:
-        raise AssertionError(f"initialize launched K1 {init_k1} times, not 4")
 
     msm_runs, msm_total, k5, k6 = run_msm(
         dev, os.path.join(HERE, "tests", "vectors", "secp256k1_kat.json"))
@@ -1383,25 +1471,34 @@ def main() -> int:
     emit(dict(check="point_butterfly update_fold", **{
         k: v for k, v in k3["update_fold"].items() if k != "name"}))
 
+    # a row's ms, plain_ms and bound are at its secp256k1 shape (the IPA
+    # path's); its BN254 numbers (the KZG path's) are under "bn254"
     rows = []
     for r in (k1, *k2, k3, k4, gs, k5, k6, k7):
         name = r["name"]
         k = native.KERNELS[name]
         per_phase = {}
-        for rec in phases:
-            per_phase.setdefault(rec["phase"], []).append(
-                rec["launches"][name])
+        for rec in phases + kzg_phases:
+            key = rec["phase"] if rec["scheme"] == "ipa" else \
+                "kzg " + rec["phase"]
+            per_phase.setdefault(key, []).append(rec["launches"][name])
         per_phase["run_msm"] = [msm_total[name]]
+        b = bn.get(name)
         rows.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces,
-            "launches": total[name] + msm_total[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": total[name] + kzg_total[name] + msm_total[name],
+            "max_abs_err": max(r["max_abs_err"],
+                               b["max_abs_err"] if b else 0),
+            "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "shape": r["shape"],
             "launches_per_phase": per_phase,
             **{k: r[k] for k in ("shapes", "update_fold") if k in r},
+            **({"bn254": {k: b[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err", "shapes", "lane") if k in b}} if b else {}),
         })
     emit({"kernels": rows})
     print(card_line(), flush=True)

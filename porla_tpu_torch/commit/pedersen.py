@@ -4,7 +4,9 @@ A block commitment is the 128-point MSM sum_i chunk_i * G_i over the
 deterministic generators (reference Client.hpp:374-421 /
 Server.hpp:329-361). The generators never change within a run, so every
 commitment rides K4 over per-window tables of the generators, one group of
-NG lanes a block, summed inside the same launch.
+NG lanes a block, summed inside the same launch. The KZG server's SRS
+commitments are the same MSM over the SRS powers on BN254
+(`commit_blocks` with `ops=bn254()`).
 """
 
 from __future__ import annotations
@@ -37,12 +39,12 @@ def alpha_generators(alpha: int, num: int = NUM_GENERATORS):
         [ecc.mul(ecc.SECP256K1, g, alpha) for g in gens])
 
 
-def commit_blocks(generators: JacPoint, scalars: torch.Tensor,
-                  nbits: int = 256, ops=None) -> JacPoint:
+def commit_blocks(generators: JacPoint, scalars: torch.Tensor, ops,
+                  nbits: int = 256) -> JacPoint:
     """scalars: (B, NG, 16) standard-form chunk values -> JacPoint (B,) of
-    commitments sum_i s_i * G_i, on the scalars' device (NG a power of
-    two)."""
-    ops = ops or secp256k1()
+    commitments sum_i s_i * G_i over `ops`'s curve (the IPA generators on
+    secp256k1, the KZG SRS on BN254), on the scalars' device (NG a power
+    of two)."""
     B, ng = scalars.shape[0], scalars.shape[1]
     tbl = cuda_curve.fb_table_for(
         ops, JacPoint(*(c[:ng] for c in generators)), nbits)

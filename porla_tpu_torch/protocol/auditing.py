@@ -107,6 +107,15 @@ def audit_pad_slots(num_blocks: int, height: int) -> int:
     return p
 
 
+def check_pad_slots(plan: AuditPlan, slots: int) -> None:
+    """Both parties pad an audit to `slots` (audit_pad_slots); a plan with
+    more samples than that would pad by a negative count (a silent no-op
+    for list padding), so it is refused."""
+    if len(plan.samples) > slots:
+        raise ValueError(f"audit plan of {len(plan.samples)} samples exceeds "
+                         f"its {slots} padded slots")
+
+
 def masked_write_step(write_step: int, level: int) -> int:
     """The write step at which `level`'s fresh complements were installed
     (Client.hpp:646: write_step &= ~((1<<i)-1))."""

@@ -4,8 +4,9 @@ Reimplements the reference client (porla/Client/Client.hpp) on PyTorch,
 with its point work on `device` (the card unless the caller asks for the
 CPU). The client keeps only the secret scalar alpha and the AES PRF key;
 every MAC complement h^PRF(level,index,write_step) is re-derived on demand
-(Client.hpp:42-46, 423-455). This slice ports the IPA scheme; KZG raises
-NotImplementedError.
+(Client.hpp:42-46, 423-455). Both schemes: IPA on secp256k1 (Pedersen
+commitments on K4, the IPA transcript) and KZG on BN254 (the client's
+trusted setup, commitments f(tau)*alpha*G1 on the host, a pairing check).
 
 Deliberate deviation from the reference: during initialize the reference
 computes its complement fold at write_step = 1 while the server rebuilds
@@ -18,20 +19,23 @@ audits verify immediately.
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 import torch
 
 from porla_tpu_torch import native
 from porla_tpu_torch.config import NUM_CHUNKS, PorlaConfig
-from porla_tpu_torch.commit import ipa, pedersen
+from porla_tpu_torch.commit import ipa, kzg, pedersen
 from porla_tpu_torch.crypto.aes import MacPrf, Prg
 from porla_tpu_torch.crypto import testrand
 from porla_tpu_torch.curves import cuda_curve
 from porla_tpu_torch.curves import kernels as ck
-from porla_tpu_torch.curves.instances import secp256k1
+from porla_tpu_torch.curves.instances import bn254, secp256k1
 from porla_tpu_torch.curves.weierstrass import JacPoint, cat
 from porla_tpu_torch.fields import limbs
+from porla_tpu_torch.fields.constants import BN254_R
+from porla_tpu_torch.golden import bn254_pairing as bp
 from porla_tpu_torch.golden import ecc
 from porla_tpu_torch.ntt.engine import NttContext
 from porla_tpu_torch.protocol import auditing, compute, hlog, points_io
@@ -60,18 +64,28 @@ class UpdateOrderError(ValueError):
 class PorlaClient:
     def __init__(self, config: PorlaConfig, transport,
                  data_seed: bytes | None = None, device="cuda"):
-        if config.scheme != "ipa":
-            raise NotImplementedError(
-                "the KZG scheme is not ported to porla_tpu_torch yet")
         self.config = config
         self.transport = transport  # callable: bytes -> bytes (REQ/REP)
         self.device = native.resolve_device(device)
         self.prf = MacPrf(config.secret_key)
-        # alpha = low 128 bits little-endian (memcpy into scalar limbs,
-        # Client.hpp:150-151); h = first zero-state testrand draw
-        self.alpha = int.from_bytes(config.secret_key, "little")
-        self.h = testrand.derive_h_mac()
-        self.ops = secp256k1()
+        if config.scheme == "ipa":
+            # alpha = low 128 bits little-endian (memcpy into scalar limbs,
+            # Client.hpp:150-151); h = first zero-state testrand draw
+            self.alpha = int.from_bytes(config.secret_key, "little")
+            self.h = testrand.derive_h_mac()
+            self.ops = secp256k1()
+        else:
+            # kzg: alpha and tau are Fr elements from big-endian bytes
+            # (gnark SetBytes, main.go:31-40). The reference derives h
+            # nondeterministically (SetRandom, main.go:52-59); the reference
+            # package derives it from TAU_KEY, and so does this one.
+            self.alpha = int.from_bytes(config.secret_key, "big") % BN254_R
+            self.tau = int.from_bytes(config.tau_key, "big") % BN254_R
+            hr = int.from_bytes(
+                hashlib.sha256(config.tau_key + b"porla-h").digest(),
+                "big") % BN254_R
+            self.h = ecc.mul(ecc.BN254, bp.G1, hr)
+            self.ops = bn254()
         self.data_rng = Prg(data_seed or os.urandom(16), 1)
         self.audit_seed_rng = Prg(os.urandom(16), 2)
         self.write_step = 0
@@ -92,21 +106,33 @@ class PorlaClient:
         return b"".join(c.to_bytes(32, "little") for c in chunks)
 
     def _commit_blocks(self, blocks: list[list[int]]) -> JacPoint:
-        """Client-side block commitments: alpha-scaled Pedersen MSM
-        (Client.hpp:374-421) on K4."""
+        """Client-side block commitments: the alpha-scaled Pedersen MSM
+        (IPA, Client.hpp:374-421) on K4, or f(tau)*alpha*G1 a block (KZG:
+        the client knows tau, so a commitment is one scalar mult on the
+        host, main.go:70-89; its points go on the wire with Z = 1, as the
+        reference client's do)."""
         with trace.span("client.commit", n=len(blocks)):
+            if self.config.scheme == "kzg":
+                return self.ops.from_affine(
+                    [kzg.commit_eval(self.tau, self.alpha, b)
+                     for b in blocks], self.device)
             scalars = torch.stack([limbs.ints_to_tensor(b) for b in blocks])
             return pedersen.commit_blocks(self.alpha_gens,
-                                          scalars.to(self.device))
+                                          scalars.to(self.device), self.ops)
 
     # ----------------------------------------------------- MAC complements
 
     def complement_points(self, records) -> JacPoint:
         """Batched h^PRF(level,index,step) as JacPoint (N,): h is a fixed
-        base, so this is K4 over 128-bit PRF scalars."""
+        base, so this is K4 over 128-bit PRF scalars (a 16-byte AES block,
+        little-endian for IPA, big-endian into Fr for KZG, which is below
+        2^128 too)."""
         with trace.span("client.complements", n=len(records)):
-            sc = limbs.ints_to_tensor(self.prf.prf_scalars_ipa(records),
-                                      self.device)
+            if self.config.scheme == "ipa":
+                rs = self.prf.prf_scalars_ipa(records)
+            else:
+                rs = self.prf.prf_scalars_kzg(records, BN254_R)
+            sc = limbs.ints_to_tensor(rs, self.device)
             tbl = cuda_curve.fb_table_for(
                 self.ops, self.ops.from_affine([self.h]), nbits=128)
             return cuda_curve.fb_scalar_mul(tbl, sc)
@@ -125,14 +151,21 @@ class PorlaClient:
         self.mod_q = self.ctx.mod_q
         self.write_step = 0
 
-        reply = self.transport(b"GET GENERATORS")
-        ops = self.ops
-        affine = ops.to_affine(points_io.points_from_bytes(reply, ops))
-        self.generators = ops.from_affine(affine[:NUM_CHUNKS], self.device)
-        self.u = affine[NUM_CHUNKS]
-        with trace.span("client.alpha_generators"):
-            self.alpha_gens = pedersen.alpha_generators(
-                self.alpha).to(self.device)
+        if self.config.scheme == "ipa":
+            reply = self.transport(b"GET GENERATORS")
+            ops = self.ops
+            affine = ops.to_affine(points_io.points_from_bytes(reply, ops))
+            self.generators = ops.from_affine(affine[:NUM_CHUNKS],
+                                              self.device)
+            self.u = affine[NUM_CHUNKS]
+            with trace.span("client.alpha_generators"):
+                self.alpha_gens = pedersen.alpha_generators(
+                    self.alpha).to(self.device)
+        else:
+            # kzg: the client runs the trusted setup and ships the SRS
+            # (init_SRS + send, Client.hpp:347-364)
+            self.srs = kzg.KzgSrs.from_tau(self.tau, NUM_CHUNKS)
+            self.transport(self.srs.to_bytes())
 
         self.transport(num_blocks.to_bytes(4, "little"))
 
@@ -268,6 +301,10 @@ class PorlaClient:
             seed = self.audit_seed_rng.random_block(1)
 
         plan = auditing.build_audit_plan(seed, ws, n, self.height)
+        # pad to the occupancy-independent worst-case slot count, as the
+        # server does (padding: coeff 0, an identity contribution)
+        S = auditing.audit_pad_slots(n, self.height)
+        auditing.check_pad_slots(plan, S)
         reply = self.transport(b"A" + seed)
 
         # complements for the sampled positions, at each level's masked step
@@ -282,10 +319,6 @@ class PorlaClient:
                 s = plan.samples[k]
                 index = s.index if s.is_x else s.index + sz
                 records[k] = (level, index, mws)
-        # pad to the occupancy-independent worst-case slot count so every
-        # audit of this database size reuses one set of executables
-        # (padding: coeff 0 — identity contribution)
-        S = auditing.audit_pad_slots(n, self.height)
         records += [(0, 0, 0)] * (S - len(records))
         compl = self.complement_points(records)
         coeffs = ([s.coeff for s in plan.samples]
@@ -295,12 +328,18 @@ class PorlaClient:
             ops, compl, limbs.ints_to_tensor(coeffs, self.device),
             nbits=32))[0]
 
-        cv = ecc.SECP256K1
-        commitment = ecc.secp_parse_compressed(reply[0:33])
-        combined_mac = ecc.secp_parse_compressed(reply[33:66])
-        combined_align = ecc.secp_parse_compressed(reply[66:99])
-        proof = reply[99:]
+        if self.config.scheme == "ipa":
+            commitment = ecc.secp_parse_compressed(reply[0:33])
+            combined_mac = ecc.secp_parse_compressed(reply[33:66])
+            combined_align = ecc.secp_parse_compressed(reply[66:99])
+        else:
+            # kzg (Client.hpp:846-876): reply = [proof(192) | MAC(96) |
+            # align(96)]; proof = [C(64) | H(64) | z(32) | claimed(32)]
+            commitment = ecc.bn254_unmarshal(reply[0:64])
+            combined_mac, combined_align = ops.to_affine(
+                points_io.points_from_bytes(reply[192:384], ops))
 
+        cv = ops.curve
         lhs = ecc.add(cv, ecc.mul(cv, commitment, self.alpha),
                       combined_compl)
         rhs = ecc.add(cv, combined_mac,
@@ -308,7 +347,14 @@ class PorlaClient:
         if lhs != rhs:
             raise AuditError("MAC equation failed: data loss detected")
 
-        ipa.verify(commitment, proof, self.generators, self.u)
+        if self.config.scheme == "ipa":
+            ipa.verify(commitment, reply[99:], self.generators, self.u)
+            return
+        H = ecc.bn254_unmarshal(reply[64:128])
+        z = int.from_bytes(reply[128:160], "big")
+        claimed = int.from_bytes(reply[160:192], "big")
+        if not kzg.verify(self.srs, commitment, H, z, claimed):
+            raise AuditError("KZG opening proof failed")
 
     # ------------------------------------------------------------ self test
 

@@ -14,7 +14,6 @@ import numpy as np
 import torch
 
 from porla_tpu_torch.curves import cuda_curve
-from porla_tpu_torch.curves.instances import secp256k1
 from porla_tpu_torch.curves.weierstrass import JacPoint, cat, index
 from porla_tpu_torch.fields import limbs, mont
 from porla_tpu_torch.ntt import cuda_stage
@@ -61,12 +60,11 @@ def encode_crt(mod_q, ctx, arr: CrtArray) -> CrtArray:
 # --- MAC plane (points) -------------------------------------------------------
 
 def point_butterfly(M0s: list[JacPoint], M1s: list[JacPoint],
-                    tw: Twiddles, ops=None):
+                    tw: Twiddles, *, ops):
     """Butterfly several point planes with shared twiddles: returns
     ([M0 + v*M1], [M0 - v*M1]) per plane, all planes in one K3 launch."""
     with trace.span("point_butterfly", L=M0s[0].x.shape[0],
                     planes=len(M0s)):
-        ops = ops or secp256k1()
         nplanes = len(M0s)
         L = M0s[0].x.shape[0]
         dev = M0s[0].x.device
@@ -77,8 +75,8 @@ def point_butterfly(M0s: list[JacPoint], M1s: list[JacPoint],
         return his, los
 
 
-def point_stage(ctx, s: int, planes: list[JacPoint],
-                ops=None) -> list[JacPoint]:
+def point_stage(ctx, s: int, planes: list[JacPoint], *,
+                ops) -> list[JacPoint]:
     """One radix-2 CRebuild stage over each (n,) point plane (the MAC
     mirror of the data stage loop, Server.hpp:1548-1687); all planes go
     through one K3 launch."""
@@ -104,7 +102,8 @@ def point_stage(ctx, s: int, planes: list[JacPoint],
             for hi, lo_ in zip(his, los)]
 
 
-def point_scale(M: JacPoint, scalars, nbits: int = 256, ops=None) -> JacPoint:
+def point_scale(M: JacPoint, scalars, nbits: int = 256, *,
+                ops) -> JacPoint:
     """Batched v_i * M_i (K2); scalars (L, 16) or one (1, 16) row
     broadcast over the batch."""
     with trace.span("point_scale", L=M.x.shape[0], nbits=nbits):
@@ -112,7 +111,7 @@ def point_scale(M: JacPoint, scalars, nbits: int = 256, ops=None) -> JacPoint:
         sc = scalars if isinstance(scalars, torch.Tensor) else \
             limbs.to_torch(scalars)
         sc = sc.to(M.x.device).expand(L, limbs.NLIMBS).contiguous()
-        return cuda_curve.scalar_mul(ops or secp256k1(), M, sc, nbits)
+        return cuda_curve.scalar_mul(ops, M, sc, nbits)
 
 
 # --- audit linear combination -------------------------------------------------

@@ -20,14 +20,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from porla_tpu_torch.curves.instances import secp256k1
 from porla_tpu_torch.curves.weierstrass import JacPoint, cat
 from porla_tpu_torch.ntt.engine import CrtArray, NttContext
 from porla_tpu_torch.protocol import compute
 
 
-def infinity_points(n: int, ops=None, device="cpu") -> JacPoint:
-    return (ops or secp256k1()).infinity((n,), device)
+def infinity_points(n: int, ops, device="cpu") -> JacPoint:
+    return ops.infinity((n,), device)
 
 
 def concat_crt(a: CrtArray, b: CrtArray) -> CrtArray:
@@ -76,8 +75,7 @@ def mix_planes(ctx: NttContext, lower_x: Planes, lower_y: Planes,
     names = lower_x.point_names()
     m0 = [lower_x.points[n] for n in names] + [lower_y.points[n] for n in names]
     m1 = [upper_x.points[n] for n in names] + [upper_y.points[n] for n in names]
-    his, los = compute.point_butterfly(m0, m1, tw,
-                                       ops=getattr(ctx, "curve_ops", None))
+    his, los = compute.point_butterfly(m0, m1, tw, ops=ctx.curve_ops)
     k = len(names)
     for idx, n in enumerate(names):
         out_x.points[n] = cat([his[idx], los[idx]])

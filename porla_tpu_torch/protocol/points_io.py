@@ -4,22 +4,23 @@ The MAC wire format is the canonical Jacobian triple (X, Y, Z) as
 3 x 32 little-endian bytes (96 bytes), standard (not Montgomery) form;
 infinity is Z = 0. It is byte-compatible with the reference package's
 `porla_tpu/protocol/points_io.py`, so a client of one package can talk to
-a server of the other. Audit-reply points stay in the reference's 33-byte
-compressed format (protocol/server.py).
+a server of the other. IPA audit replies carry the reference's 33-byte
+compressed points instead, KZG audit replies these triples
+(protocol/server.py). Either curve: the caller passes its `CurveOps`.
 """
 
 from __future__ import annotations
 
-from porla_tpu_torch.curves.instances import secp256k1
 from porla_tpu_torch.curves.weierstrass import JacPoint
 from porla_tpu_torch.fields import limbs
 
 MAC_WIRE_SIZE = 96
 
 
-def points_to_bytes(pts: JacPoint, ops=None) -> bytes:
-    """Batched JacPoint (N,) -> N*96 bytes (host conversion, exact)."""
-    fp = (ops or secp256k1()).fp
+def points_to_bytes(pts: JacPoint, ops) -> bytes:
+    """Batched JacPoint (N,) of `ops`'s curve -> N*96 bytes (host
+    conversion, exact)."""
+    fp = ops.fp
     p = fp.n
     rinv = pow(fp.r, -1, p)
     xs, ys, zs = (limbs.tensor_to_ints(c) for c in pts)
@@ -31,11 +32,12 @@ def points_to_bytes(pts: JacPoint, ops=None) -> bytes:
     return bytes(out)
 
 
-def points_from_bytes(data: bytes, ops=None, device="cpu") -> JacPoint:
-    """N*96 bytes -> batched JacPoint (N,) in Montgomery form."""
+def points_from_bytes(data: bytes, ops, device="cpu") -> JacPoint:
+    """N*96 bytes -> batched JacPoint (N,) of `ops`'s curve in Montgomery
+    form."""
     assert len(data) % MAC_WIRE_SIZE == 0
     n = len(data) // MAC_WIRE_SIZE
-    fp = (ops or secp256k1()).fp
+    fp = ops.fp
     xs, ys, zs = [], [], []
     for i in range(n):
         rec = data[i * 96:(i + 1) * 96]

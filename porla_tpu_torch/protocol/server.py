@@ -7,24 +7,31 @@ points, both resident on `device` (the card unless the caller asks for
 the CPU). Message framing mirrors the reference's REQ/REP flow (opcodes
 'U'/'A', Server.hpp:933-952); the MAC wire format is the 96-byte Jacobian
 triple (protocol/points_io.py), and audit replies keep the reference's
-33-byte compressed points + 556-byte IPA proof (Server.hpp:880-894). The
-bytes are those of the reference package's server, so either package's
+33-byte compressed points + 556-byte IPA proof (Server.hpp:880-894), or
+for KZG the 192-byte opening and two 96-byte points (Server.hpp:898-916).
+The bytes are those of the reference package's server, so either package's
 client can talk to either server.
 
-This slice ports the IPA scheme on one device with the cached (all in
-memory) CRebuild. The KZG scheme, the multi-device mesh paths and the
-out-of-core tier raise NotImplementedError.
+Both schemes run on one device with the cached (all in memory) CRebuild,
+and a ready server checkpoints to the reference package's
+`checkpoint.npz` + `checkpoint.json` layout, so either package resumes the
+other's checkpoint. The multi-device mesh paths and the out-of-core tier
+raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import json
+import os
+
+import numpy as np
 import torch
 
 from porla_tpu_torch import native
 from porla_tpu_torch.config import BLOCK_SIZE, NUM_CHUNKS, PorlaConfig
-from porla_tpu_torch.commit import ipa, pedersen
+from porla_tpu_torch.commit import ipa, kzg, pedersen
 from porla_tpu_torch.curves import kernels as ck
-from porla_tpu_torch.curves.instances import secp256k1
+from porla_tpu_torch.curves.instances import bn254, secp256k1
 from porla_tpu_torch.curves.weierstrass import JacPoint, cat, index
 from porla_tpu_torch.fields import limbs
 from porla_tpu_torch.golden import ecc
@@ -42,16 +49,18 @@ def _not_ported(what: str):
 
 class PorlaServer:
     def __init__(self, config: PorlaConfig, device="cuda"):
-        if config.scheme != "ipa":
-            raise _not_ported("the KZG scheme")
         if config.mesh is not None:
             raise _not_ported("the multi-device mesh")
         self.config = config
         self.device = native.resolve_device(device)
         self.store = BlockStore(config.storage_dir)
-        gens, self.u, self._gens_affine = pedersen.ipa_generators()
-        self.generators = gens.to(self.device)
-        self.ops = secp256k1()
+        if config.scheme == "ipa":
+            gens, self.u, self._gens_affine = pedersen.ipa_generators()
+            self.generators = gens.to(self.device)
+            self.ops = secp256k1()
+        else:  # kzg: the SRS arrives from the client (Server.hpp:179-194)
+            self.srs = None
+            self.ops = bn254()
         self.num_blocks = 0
         self.write_step = 0
         self._state = "generators"
@@ -62,9 +71,15 @@ class PorlaServer:
     def handle(self, msg: bytes) -> bytes:
         if self._state == "generators":
             self._state = "num_blocks"
-            assert msg == b"GET GENERATORS"
-            pts = self._gens_affine + [self.u]
-            return points_io.points_to_bytes(self.ops.from_affine(pts))
+            if self.config.scheme == "ipa":
+                assert msg == b"GET GENERATORS"
+                pts = self._gens_affine + [self.u]
+                return points_io.points_to_bytes(self.ops.from_affine(pts),
+                                                 self.ops)
+            # kzg: the first message is the SRS (init_SRS_from_data,
+            # Server.hpp:179-194)
+            self.srs = kzg.KzgSrs.from_bytes(msg)
+            return b"RECEIVED SRS FROM CLIENT."
         if self._state == "num_blocks":
             self._setup(int.from_bytes(msg[:4], "little"))
             self._state = "blocks"
@@ -240,9 +255,17 @@ class PorlaServer:
         """align_MAC (Server.hpp:478-562): acc += commit((A mod p) - A);
         A := A mod p. Returns (new acc (batch,), reduced data)."""
         c = engine.align_scalars(data, self.mod_q)
-        commit = pedersen.commit_blocks(self.generators, c)
-        return (self.ops.add(acc, commit),
+        return (self.ops.add(acc, self._commit_batch(c)),
                 engine.crt_reduce_mod_p(data, self.mod_q))
+
+    def _commit_batch(self, scalars: torch.Tensor) -> JacPoint:
+        """Commit a (B, NUM_CHUNKS, 16) scalar batch: the Pedersen MSM over
+        the IPA generators, or the SRS MSM for KZG (compute_digest_from_srs,
+        main.go:103-116); one K4 launch either way."""
+        if self.config.scheme == "ipa":
+            return pedersen.commit_blocks(self.generators, scalars, self.ops)
+        return pedersen.commit_blocks(self.srs.g1_dev(self.device), scalars,
+                                      self.ops)
 
     # ---------------------------------------------------------------- audit
 
@@ -288,6 +311,7 @@ class PorlaServer:
         # (auditing.audit_pad_slots): zero blocks with coefficient 0 and
         # points at infinity are exact identity contributions
         S = auditing.audit_pad_slots(self.num_blocks, self.height)
+        auditing.check_pad_slots(plan, S)
         npad = S - len(coeffs)
         if npad:
             zb = torch.zeros((npad,) + tuple(blocks.p.shape[1:]),
@@ -312,11 +336,14 @@ class PorlaServer:
         B1 = CrtArray(B.p[None], B.q[None])
         combined_align_b, B1 = self._align(B1, combined_align_j)
         b_chunks = limbs.tensor_to_ints(B1.p[0])
+        if self.config.scheme == "kzg":
+            return self._kzg_reply(plan, b_chunks, combined_mac_j,
+                                   combined_align_b)
 
         combined_mac = ops.to_affine(combined_mac_j)[0]
         combined_align = ops.to_affine(combined_align_b)[0]
-        commitment = ops.to_affine(pedersen.commit_blocks(
-            self.generators, limbs.ints_to_tensor(b_chunks, dev)[None]))[0]
+        commitment = ops.to_affine(self._commit_batch(
+            limbs.ints_to_tensor(b_chunks, dev)[None]))[0]
 
         # IPA proof over (B, challenge powers) (Server.hpp:856-877)
         a_vec = list(b_chunks)
@@ -332,6 +359,97 @@ class PorlaServer:
                 + ecc.secp_serialize_compressed(combined_align)
                 + proof)
 
+    def _kzg_reply(self, plan, b_chunks: list[int], combined_mac: JacPoint,
+                   combined_align: JacPoint) -> bytes:
+        """[C(64) | H(64) | z(32) | claimed(32)] then the combined MAC and
+        alignment points as 96-byte triples (create_kzg_proof,
+        Server.hpp:898-916 / main.go:153-175)."""
+        with trace.span("server.audit.prove"):
+            commitment = kzg.commit_msm(self.srs, b_chunks, self.device)
+            # the reference passes the next unconsumed signed int through a
+            # C int -> Go uint64 conversion (a negative one wraps mod 2^64)
+            z = plan.kzg_challenge & 0xFFFFFFFFFFFFFFFF
+            H, claimed = kzg.open_at(self.srs, b_chunks, z, self.device)
+        proof = (ecc.bn254_marshal(commitment) + ecc.bn254_marshal(H)
+                 + (z % kzg.FR).to_bytes(32, "big")
+                 + claimed.to_bytes(32, "big"))
+        return (proof + points_io.points_to_bytes(combined_mac, self.ops)
+                + points_io.points_to_bytes(combined_align, self.ops))
+
+    # ---------------------------------------------------- checkpoint/resume
+
+    def save_checkpoint(self) -> str:
+        """Persist the server state (write counter, MAC plane, the levels'
+        planes and, for KZG, the SRS) beside the block files as
+        `checkpoint.npz` + `checkpoint.json`, the reference package's layout
+        key for key (porla_tpu/protocol/server.py:164-206): host uint32
+        (…, 16) limbs, so either package resumes the other's checkpoint.
+        Returns the checkpoint path."""
+        if self._state != "ready":
+            raise RuntimeError("a checkpoint is taken from the ready state")
+        arrays: dict = {}
+        meta = {"scheme": self.config.scheme,
+                "num_blocks": self.num_blocks,
+                "write_step": self.write_step,
+                "levels": []}
+        for li, lv in enumerate(self.levels):
+            lm = {"empty": lv.empty, "file_backed": False, "sides": {}}
+            for side, planes in (("x", lv.x), ("y", lv.y)):
+                lm["sides"][side] = {"has_data": planes.data is not None,
+                                     "points": planes.point_names()}
+                if planes.data is not None:
+                    arrays[f"L{li}{side}_dp"] = limbs.to_numpy(planes.data.p)
+                    arrays[f"L{li}{side}_dq"] = limbs.to_numpy(planes.data.q)
+                for nm in planes.point_names():
+                    for c, a in zip("xyz", planes.points[nm]):
+                        arrays[f"L{li}{side}_{nm}{c}"] = limbs.to_numpy(a)
+            meta["levels"].append(lm)
+        for c, a in zip("xyz", self.mac_u):
+            arrays[f"mac_u_{c}"] = limbs.to_numpy(a)
+        if self.config.scheme == "kzg":
+            arrays["srs"] = np.frombuffer(self.srs.to_bytes(), np.uint8)
+        path = os.path.join(self.store.root, "checkpoint.npz")
+        np.savez(path, **arrays)
+        with open(os.path.join(self.store.root, "checkpoint.json"), "w") as f:
+            json.dump(meta, f)
+        return path
+
+    @classmethod
+    def restore(cls, config: PorlaConfig, device="cuda") -> "PorlaServer":
+        """A ready server on `device` from the checkpoint in
+        config.storage_dir, written by either package's save_checkpoint
+        (the block files are used in place)."""
+        with open(os.path.join(config.storage_dir, "checkpoint.json")) as f:
+            meta = json.load(f)
+        if meta["scheme"] != config.scheme:
+            raise ValueError(f"checkpoint of scheme {meta['scheme']!r}, "
+                             f"config {config.scheme!r}")
+        with np.load(os.path.join(config.storage_dir,
+                                  "checkpoint.npz")) as data:
+            def pt(prefix):
+                return tuple(data[prefix + c] for c in "xyz")
+
+            levels = []
+            for li, lm in enumerate(meta["levels"]):
+                if lm["file_backed"]:
+                    raise _not_ported("restoring a file-backed (out-of-core) "
+                                      "level")
+                sides = {}
+                for side in ("x", "y"):
+                    pm = lm["sides"][side]
+                    key = f"L{li}{side}_"
+                    sides[side] = {
+                        "data": (data[key + "dp"], data[key + "dq"])
+                        if pm["has_data"] else None,
+                        "points": {nm: pt(key + nm) for nm in pm["points"]}}
+                levels.append({"empty": lm["empty"], **sides})
+            state = {"num_blocks": meta["num_blocks"],
+                     "write_step": meta["write_step"],
+                     "mac_u": pt("mac_u_"), "levels": levels}
+            if config.scheme == "kzg":
+                state["srs"] = data["srs"].tobytes()
+        return load_state(state, config, device)
+
 
 # --- state carry-over ---------------------------------------------------------
 
@@ -341,9 +459,8 @@ def from_jax_state(src, config: PorlaConfig, device="cuda") -> PorlaServer:
     or any object with the same attributes and numpy-convertible arrays:
     num_blocks, write_step, mac_u (x, y, z) and levels[i] with .empty and
     .x/.y planes (.data CrtArray or None, .points name -> JacPoint). The
-    block files are shared through config.storage_dir."""
-    import numpy as np
-
+    block files are shared through config.storage_dir. A KZG server's SRS
+    (an object with `to_bytes()`) carries over too."""
     def pt(p):
         return tuple(np.asarray(c) for c in p)
 
@@ -359,18 +476,22 @@ def from_jax_state(src, config: PorlaConfig, device="cuda") -> PorlaServer:
                 (np.asarray(planes.data.p), np.asarray(planes.data.q)),
                 "points": {k: pt(v) for k, v in planes.points.items()}}
         levels.append({"empty": lv.empty, **sides})
-    return load_state({"num_blocks": src.num_blocks,
-                       "write_step": src.write_step,
-                       "mac_u": pt(src.mac_u), "levels": levels},
-                      config, device)
+    state = {"num_blocks": src.num_blocks, "write_step": src.write_step,
+             "mac_u": pt(src.mac_u), "levels": levels}
+    if config.scheme == "kzg":
+        state["srs"] = src.srs.to_bytes()
+    return load_state(state, config, device)
 
 
 def load_state(state: dict, config: PorlaConfig, device="cuda") -> PorlaServer:
     """A ready server on `device` from a log state of host numpy arrays in
     the reference package's layout: uint32 (…, 16) limbs; num_blocks,
     write_step, mac_u (x, y, z) and levels of {"empty", "x", "y"}, each
-    side {"data": (p, q) limbs or None, "points": name -> (x, y, z)}."""
+    side {"data": (p, q) limbs or None, "points": name -> (x, y, z)}; and
+    for KZG "srs", the SRS wire bytes."""
     srv = PorlaServer(config, device)
+    if config.scheme == "kzg":
+        srv.srs = kzg.KzgSrs.from_bytes(state["srs"])
     srv._setup(state["num_blocks"])
     srv.write_step = state["write_step"]
     dev = srv.device

@@ -39,6 +39,7 @@ def test_audit_plans_match_reference(n):
 def test_mac_wire_format_matches_reference():
     cv = ecc.SECP256K1
     pts = [ecc.mul(cv, cv.g, k) for k in (1, 7, 123, cv.n - 1)] + [ecc.INF]
-    wire = points_io.points_to_bytes(secp256k1().from_affine(pts))
+    ops = secp256k1()
+    wire = points_io.points_to_bytes(ops.from_affine(pts), ops)
     assert wire == ref_io.points_to_bytes(jsecp().from_affine(np, pts))
-    assert secp256k1().to_affine(points_io.points_from_bytes(wire)) == pts
+    assert ops.to_affine(points_io.points_from_bytes(wire, ops)) == pts

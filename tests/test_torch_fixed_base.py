@@ -7,7 +7,9 @@ points compare as affine points (a lane split over threads adds in another
 order than the reference's window chain); `group_sum` compares limb for
 limb with `tree_sum`. Tolerance: zero. Inputs from `random.Random` seeds:
 4-8 generators, scalars with the edges 0, 1, n - 1, n and 2^nbits - 1
-where they fit, and infinity, P + P and P + (-P) inside a group."""
+where they fit, and infinity, P + P and P + (-P) inside a group. On
+secp256k1 and, in the cases whose id starts with `bn254`, on BN254 G1 (the
+KZG scheme's complements, SRS commitments and audit sums)."""
 
 import random
 
@@ -16,19 +18,23 @@ import pytest
 import torch
 
 from porla_tpu.curves import pallas_curve
+from porla_tpu.curves.instances import bn254 as jbn254
 from porla_tpu.curves.instances import secp256k1 as jsecp
 from porla_tpu.curves.weierstrass import JacPoint as JJacPoint
 from porla_tpu.fields import limbs as JL
 from porla_tpu.golden import ecc
 from porla_tpu_torch import native
-from porla_tpu_torch.commit import pedersen
+from porla_tpu_torch.commit import kzg, pedersen
 from porla_tpu_torch.curves import cuda_curve as cc
-from porla_tpu_torch.curves.instances import secp256k1
+from porla_tpu_torch.curves.instances import bn254, secp256k1
 from porla_tpu_torch.curves.weierstrass import JacPoint, index
 from porla_tpu_torch.fields import limbs as L
 
 torch.set_num_threads(1)     # small tensors; xdist runs files side by side
 
+# curve name -> (golden curve, port ops, reference ops)
+CURVES = {"secp256k1": (ecc.SECP256K1, secp256k1, jsecp),
+          "bn254": (ecc.BN254, bn254, jbn254)}
 CUR = ecc.SECP256K1
 slow = pytest.mark.slow
 
@@ -41,16 +47,16 @@ def _cpu_only(monkeypatch):
     monkeypatch.setattr(native, "library", no_kernel)
 
 
-def _gens(k, seed=3):
+def _gens(k, seed=3, cur=CUR):
     rng = random.Random(seed)
-    return [ecc.mul(CUR, CUR.g, rng.randrange(1, CUR.n))
-            for _ in range(k - 1)] + [CUR.g]
+    return [ecc.mul(cur, cur.g, rng.randrange(1, cur.n))
+            for _ in range(k - 1)] + [cur.g]
 
 
-def _scalars(B, nbits, seed=4):
+def _scalars(B, nbits, seed=4, cur=CUR):
     rng = random.Random(seed)
     top = 1 << nbits
-    edges = [0, 1] + [v for v in (CUR.n - 1, CUR.n) if v < top] + [top - 1]
+    edges = [0, 1] + [v for v in (cur.n - 1, cur.n) if v < top] + [top - 1]
     return edges + [rng.getrandbits(nbits) for _ in range(B - len(edges))]
 
 
@@ -58,23 +64,28 @@ def _np(p):
     return JJacPoint(*(L.to_numpy(c) for c in p))
 
 
-def _ref_lanes(gens, sc, nbits):
+def _ref_lanes(gens, sc, nbits, jops=None):
     """The reference's numpy twin of K4 per lane: its windowed scalar mul
     of each lane's base."""
-    jops = jsecp()
+    jops = jops or jsecp()
     base = jops.from_affine(np, [gens[i % len(gens)] for i in range(len(sc))])
     return jops.scalar_mul(np, base, JL.ints_to_limbs(sc), nbits)
 
 
-@pytest.mark.parametrize("nbits", [32, 64, 256])
-def test_fb_scalar_mul_vs_golden_and_reference(nbits):
-    ops = secp256k1()
-    gens = _gens(8)
+@pytest.mark.parametrize("nbits,curve", [
+    pytest.param(32, "secp256k1", id="32"),
+    pytest.param(64, "secp256k1", id="64"),
+    pytest.param(256, "secp256k1", id="256"),
+    pytest.param(128, "bn254", id="bn254-128")])
+def test_fb_scalar_mul_vs_golden_and_reference(nbits, curve):
+    cur, make, jmake = CURVES[curve]
+    ops, jops = make(), jmake()
+    gens = _gens(8, cur=cur)
     tbl = cc.build_fb_table(ops, gens, nbits=nbits)
-    sc = _scalars(24, nbits)
+    sc = _scalars(24, nbits, cur=cur)
     got = ops.to_affine(cc.fb_scalar_mul(tbl, L.ints_to_tensor(sc)))
-    assert got == [ecc.mul(CUR, gens[i % 8], k) for i, k in enumerate(sc)]
-    assert got == jsecp().to_affine(_ref_lanes(gens, sc, nbits))
+    assert got == [ecc.mul(cur, gens[i % 8], k) for i, k in enumerate(sc)]
+    assert got == jops.to_affine(_ref_lanes(gens, sc, nbits, jops))
 
 
 @pytest.mark.parametrize("split", [1, 2, 4, 8])
@@ -90,21 +101,26 @@ def test_fb_lane_split_same_points(split):
                                   for i, k in enumerate(sc)]
 
 
-@pytest.mark.parametrize("nout", [1, 2, 16])
-def test_fb_msm_groups_vs_golden_and_reference(nout):
+@pytest.mark.parametrize("nout,curve", [
+    pytest.param(1, "secp256k1", id="1"),
+    pytest.param(2, "secp256k1", id="2"),
+    pytest.param(16, "secp256k1", id="16"),
+    pytest.param(1, "bn254", id="bn254-1")])
+def test_fb_msm_groups_vs_golden_and_reference(nout, curve):
     """nout = 1, 2 and B (groups of one lane), with the edge scalars in the
     first group: golden sums and the reference's numpy tree sums."""
-    ops, jops = secp256k1(), jsecp()
-    gens = _gens(4)
+    cur, make, jmake = CURVES[curve]
+    ops, jops = make(), jmake()
+    gens = _gens(4, cur=cur)
     nbits = 64
     tbl = cc.build_fb_table(ops, gens, nbits=nbits)
     B = 16
-    sc = _scalars(B, nbits)
+    sc = _scalars(B, nbits, cur=cur)
     got = ops.to_affine(cc.fb_msm_groups(tbl, L.ints_to_tensor(sc), nout))
     g = B // nout
-    assert got == [ecc.msm(CUR, [gens[i % 4] for i in range(o * g, o * g + g)],
+    assert got == [ecc.msm(cur, [gens[i % 4] for i in range(o * g, o * g + g)],
                            sc[o * g:o * g + g]) for o in range(nout)]
-    lanes = _ref_lanes(gens, sc, nbits)
+    lanes = _ref_lanes(gens, sc, nbits, jops)
     ref = [jops.tree_sum(np, JJacPoint(*(c[o * g:o * g + g] for c in lanes)))
            for o in range(nout)]
     assert got == [jops.to_affine(r)[0] for r in ref]
@@ -118,36 +134,57 @@ def test_commit_blocks_vs_golden():
     gens = _gens(8)
     sc = _scalars(24, 256)
     got = pedersen.commit_blocks(ops.from_affine(gens),
-                                 L.ints_to_tensor(sc).reshape(3, 8, 16))
+                                 L.ints_to_tensor(sc).reshape(3, 8, 16), ops)
     assert ops.to_affine(got) == [ecc.msm(CUR, gens, sc[8 * b:8 * b + 8])
                                   for b in range(3)]
 
 
-def _group_points(B, nout, seed=6):
+def test_commit_blocks_over_srs():
+    """The KZG server's commitments: commit_blocks over an SRS of 8 powers
+    on BN254 is [f(tau)]G1 a block, the client's commit_eval with
+    alpha = 1."""
+    ops = bn254()
+    tau = 123456789
+    srs = kzg.KzgSrs.from_tau(tau, 8)
+    sc = _scalars(16, 256, seed=5, cur=ecc.BN254)
+    got = pedersen.commit_blocks(srs.g1_dev("cpu"),
+                                 L.ints_to_tensor(sc).reshape(2, 8, 16), ops)
+    assert ops.to_affine(got) == [kzg.commit_eval(tau, 1, sc[8 * b:8 * b + 8])
+                                  for b in range(2)]
+
+
+def _group_points(B, nout, seed=6, cur=CUR):
     """B points in nout groups with infinity, P + P and P + (-P) meeting in
     the first level of the first group."""
     rng = random.Random(seed)
-    step = ecc.mul(CUR, CUR.g, rng.randrange(1, CUR.n))
+    step = ecc.mul(cur, cur.g, rng.randrange(1, cur.n))
     pts = [step]
     while len(pts) < B:                        # distinct multiples of step
-        pts.append(ecc.add(CUR, pts[-1], step))
+        pts.append(ecc.add(cur, pts[-1], step))
     rng.shuffle(pts)
     half = B // nout // 2
     if half >= 3:
         pts[0] = ecc.INF
         pts[half + 1] = pts[1]
-        pts[half + 2] = ecc.neg(CUR, pts[2])
+        pts[half + 2] = ecc.neg(cur, pts[2])
     return pts
 
 
-@pytest.mark.parametrize("g,nout", [(1, 3), (3, 2), (5, 2), (8, 2), (300, 1)])
-def test_group_sum_plain_is_tree_sum(g, nout):
+@pytest.mark.parametrize("g,nout,curve", [
+    pytest.param(1, 3, "secp256k1", id="1-3"),
+    pytest.param(3, 2, "secp256k1", id="3-2"),
+    pytest.param(5, 2, "secp256k1", id="5-2"),
+    pytest.param(8, 2, "secp256k1", id="8-2"),
+    pytest.param(300, 1, "secp256k1", id="300-1"),
+    pytest.param(8, 2, "bn254", id="bn254-8-2")])
+def test_group_sum_plain_is_tree_sum(g, nout, curve):
     """group_sum is `ops.tree_sum` of each group limb for limb (odd levels
     carry their last point), the reference's numpy `tree_sum` too (up to 8
     points: its numpy arithmetic is slow), and the golden sums."""
-    ops, jops = secp256k1(), jsecp()
+    cur, make, jmake = CURVES[curve]
+    ops, jops = make(), jmake()
     B = g * nout
-    pts = _group_points(B, nout)
+    pts = _group_points(B, nout, cur=cur)
     P = ops.from_affine(pts)
     got = cc.group_sum(ops, P, nout)
     for o in range(nout):
@@ -158,7 +195,7 @@ def test_group_sum_plain_is_tree_sum(g, nout):
             ref = jops.tree_sum(np, _np(grp))
             assert all(np.array_equal(L.to_numpy(a[o:o + 1]), b)
                        for a, b in zip(got, ref))
-    assert ops.to_affine(got) == [ecc.msm(CUR, pts[o * g:(o + 1) * g], [1] * g)
+    assert ops.to_affine(got) == [ecc.msm(cur, pts[o * g:(o + 1) * g], [1] * g)
                                   for o in range(nout)]
 
 

@@ -1,6 +1,7 @@
 """K1's plain version and the port's NTT engine vs the reference package:
 porla_tpu.ntt.engine.encode_stages (numpy) in both CRT lanes with
-`hardened` off and on, and one fused Pallas stage
+`hardened` off and on (the q lane mod secp256k1's n, and in the cases
+whose id starts with `kzg` mod BN254's r), and one fused Pallas stage
 (pallas_stage.butterfly_stage, interpret mode); K1's host side: its pass
 plan and its packed twiddle table. Tolerance: zero."""
 
@@ -24,13 +25,16 @@ from porla_tpu_torch.protocol import compute
 torch.set_num_threads(1)     # small tensors; xdist runs files side by side
 
 
-@pytest.mark.parametrize("hardened", [False, True])
-@pytest.mark.parametrize("n", [2, 16, 256])
-def test_encode_matches_reference(n, hardened):
+@pytest.mark.parametrize("n,hardened,scheme", [
+    pytest.param(n, h, "ipa", id=f"{n}-{h}")
+    for n in (2, 16, 256) for h in (False, True)] + [
+    pytest.param(n, False, "kzg", id=f"kzg-{n}-False") for n in (16, 256)])
+def test_encode_matches_reference(n, hardened, scheme):
     rng = random.Random(n + hardened)
     C = 3
-    jctx = jeng.NttContext(n, "ipa", hardened=hardened)
-    ctx = engine.NttContext(n, "ipa", hardened=hardened)
+    jctx = jeng.NttContext(n, scheme, hardened=hardened)
+    ctx = engine.NttContext(n, scheme, hardened=hardened)
+    assert ctx.mod_q.n == jctx.mod_q.n
     vp = [rng.randrange(jctx.mod_p.n) for _ in range(n * C)]
     vq = [rng.randrange(jctx.mod_q.n) for _ in range(n * C)]
     ap = JL.ints_to_limbs(vp).reshape(n, C, 16)

@@ -9,6 +9,8 @@
   infinity, scalars 0, 1, n - 1, n, and lambda (k1 = 0).
 - Windowed mode: limb for limb `CurveOps.scalar_mul` of the reference with
   `xp=np` at nbits 32 and 64, with the edge scalars 0, 1 and 2^nbits - 1.
+Both on secp256k1 (the IPA scheme) and, in the cases whose id starts with
+`bn254`, on BN254 G1 (the KZG scheme, with its own beta and lambda).
 Tolerance: zero."""
 
 import random
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from porla_tpu.curves import glv as jglv
+from porla_tpu.curves.instances import bn254 as jbn254
 from porla_tpu.curves.instances import secp256k1 as jsecp
 from porla_tpu.curves.weierstrass import JacPoint as JJacPoint
 from porla_tpu.fields import limbs as JL
@@ -25,11 +28,14 @@ from porla_tpu.fields import mont as jmont
 from porla_tpu.golden import ecc
 from porla_tpu_torch import native
 from porla_tpu_torch.curves import cuda_curve as cc
-from porla_tpu_torch.curves.instances import secp256k1
+from porla_tpu_torch.curves.instances import bn254, secp256k1
 from porla_tpu_torch.fields import limbs as L
 
 torch.set_num_threads(1)     # small tensors; xdist runs files side by side
 
+# curve name -> (golden curve, port ops, reference ops)
+CURVES = {"secp256k1": (ecc.SECP256K1, secp256k1, jsecp),
+          "bn254": (ecc.BN254, bn254, jbn254)}
 CUR = ecc.SECP256K1
 
 
@@ -41,18 +47,19 @@ def _cpu_only(monkeypatch):
     monkeypatch.setattr(native, "library", no_kernel)
 
 
-def _points(rng, B):
-    return [ecc.mul(CUR, CUR.g, rng.randrange(1, CUR.n)) for _ in range(B)]
+def _points(rng, B, cur=CUR):
+    return [ecc.mul(cur, cur.g, rng.randrange(1, cur.n)) for _ in range(B)]
 
 
 def _np(p):
     return tuple(L.to_numpy(c) for c in p)
 
 
-def _halves_twin(pts, k):
+def _halves_twin(pts, k, curve="secp256k1"):
     """The reference's numpy twin of K2's GLV order, from its own split."""
-    jops = jsecp()
-    gp = jglv.params_for(CUR)
+    cur, _, jmake = CURVES[curve]
+    jops = jmake()
+    gp = jglv.params_for(cur)
     d = [jglv.decompose(v, gp) for v in k]
     J = jops.from_affine(np, pts)
     beta = np.broadcast_to(JL.int_to_limbs(jops.fp.to_mont_int(gp.beta)),
@@ -71,44 +78,53 @@ def _halves_twin(pts, k):
     return jops.add(np, r1, r2)
 
 
-def _glv_edges(rng, B):
+def _glv_edges(rng, B, cur=CUR):
     """B lanes: the edge lanes (as many as fit) first, then random ones."""
-    gp = jglv.params_for(CUR)
+    gp = jglv.params_for(cur)
     m = max(B, 6)
-    pts = _points(rng, m)
-    k = [rng.randrange(CUR.n) for _ in range(m)]
+    pts = _points(rng, m, cur)
+    k = [rng.randrange(cur.n) for _ in range(m)]
     pts[0] = ecc.INF
-    k[1:6] = [0, 1, CUR.n - 1, CUR.n, gp.lam]
+    k[1:6] = [0, 1, cur.n - 1, cur.n, gp.lam]
     return pts[:B], k[:B]
 
 
-@pytest.mark.parametrize("B,seed", [(1, 1), (8, 2), (16, 3)])
-def test_glv_plain_vs_reference_twin_and_golden(B, seed):
+@pytest.mark.parametrize("B,seed,curve", [
+    pytest.param(1, 1, "secp256k1", id="1-1"),
+    pytest.param(8, 2, "secp256k1", id="8-2"),
+    pytest.param(16, 3, "secp256k1", id="16-3"),
+    pytest.param(8, 5, "bn254", id="bn254-8-5")])
+def test_glv_plain_vs_reference_twin_and_golden(B, seed, curve):
     rng = random.Random(seed)
-    ops = secp256k1()
+    cur, make, _ = CURVES[curve]
+    ops = make()
     if B == 1:                                  # the update's shape: k1 = 0
-        pts, k = _points(rng, 1), [jglv.params_for(CUR).lam]
+        pts, k = _points(rng, 1, cur), [jglv.params_for(cur).lam]
     else:
-        pts, k = _glv_edges(rng, B)
+        pts, k = _glv_edges(rng, B, cur)
     P, S = ops.from_affine(pts), L.ints_to_tensor(k)
     got = cc.scalar_mul(ops, P, S, 256)         # the CPU route: plain version
     assert all(torch.equal(a, b) for a, b in
                zip(got, cc.glv_halves_plain(ops, P, cc.GlvScalars(ops, S))))
     assert all(np.array_equal(a, b)
-               for a, b in zip(_np(got), _halves_twin(pts, k)))
-    assert ops.to_affine(got) == [ecc.mul(CUR, q, s) for q, s in zip(pts, k)]
+               for a, b in zip(_np(got), _halves_twin(pts, k, curve)))
+    assert ops.to_affine(got) == [ecc.mul(cur, q, s) for q, s in zip(pts, k)]
     if B >= 6:
         g = cc.GlvScalars(ops, S)
         assert int(g.k1[5].abs().sum()) == 0    # the lambda lane has k1 = 0
         assert ops.to_affine(got)[:5] == [ecc.INF, ecc.INF, pts[2],
-                                          ecc.neg(CUR, pts[3]), ecc.INF]
+                                          ecc.neg(cur, pts[3]), ecc.INF]
 
 
-@pytest.mark.parametrize("nbits", [32, 64])
-def test_window_plain_vs_reference(nbits):
+@pytest.mark.parametrize("nbits,curve", [
+    pytest.param(32, "secp256k1", id="32"),
+    pytest.param(64, "secp256k1", id="64"),
+    pytest.param(32, "bn254", id="bn254-32")])
+def test_window_plain_vs_reference(nbits, curve):
     rng = random.Random(nbits)
-    ops, jops = secp256k1(), jsecp()
-    pts = _points(rng, 10)
+    cur, make, jmake = CURVES[curve]
+    ops, jops = make(), jmake()
+    pts = _points(rng, 10, cur)
     pts[0] = ecc.INF
     k = [rng.getrandbits(nbits) for _ in range(10)]
     k[1], k[2], k[3] = 0, 1, (1 << nbits) - 1
@@ -116,7 +132,7 @@ def test_window_plain_vs_reference(nbits):
     want = jops.scalar_mul(np, jops.from_affine(np, pts), JL.ints_to_limbs(k),
                            nbits)
     assert all(np.array_equal(a, b) for a, b in zip(_np(got), want))
-    assert ops.to_affine(got) == [ecc.mul(CUR, q, s) for q, s in zip(pts, k)]
+    assert ops.to_affine(got) == [ecc.mul(cur, q, s) for q, s in zip(pts, k)]
 
 
 def test_launches_reject_bad_forms():
