@@ -18,7 +18,10 @@
    at 1024 lanes and at 1 (an update's); K4 at each of the path's shapes
    (per lane and in groups at the commit shape, the two IPA shapes, the
    complements) and at one group too wide for a block (K4 then group_sum);
-   group_sum at the audit's part sums and at 300 lanes. One
+   group_sum at GS_SHAPES (the audit's part sums, odd widths, 2^14 points
+   in one group spread over 128 blocks, and the one- and two-add groups
+   whose difference gives the depth floor's unit), one launch each; K7 at
+   1024 lanes and at `run_msm`'s 300 (a ragged last block). One
    `fb_msm_groups`, one `commit_blocks`, one `msm_parts`, one `point_scale`
    and one `encode_crt` call must be their kernels' launches alone, with no
    plain torch point (or, for the last two, field) arithmetic. K5 and K6
@@ -30,7 +33,8 @@
    The KZG path's kernels are held the same way on BN254 G1 operands at
    its shapes: K1's q lane mod BN254's r, K2 in both modes, K3, K4 over the
    SRS (the server's commitments, 131072 lanes in 1024 groups and 128 in
-   one) and on h (the client's complements), group_sum at the audit's parts.
+   one) and on h (the client's complements), group_sum at GS_SHAPES, and K7
+   at 1024 lanes and 64 bits, as on secp256k1.
 3. Runs the protocol at n = 1024 blocks on the card, first the IPA scheme
    (secp256k1), then the KZG scheme (BN254): initialize, an audit, 4
    updates, another audit (both must verify), then a corrupted codeword
@@ -534,28 +538,46 @@ def check_k4(dev, rng, ops, shapes=FB_SHAPES, gens_aff=None):
     return rows
 
 
+# group_sum's checked shapes (points, groups): one and two dependent adds
+# (their difference is one cooperative add's latency, the depth floor's
+# unit), widths whose first level alone splits (300 on 16 blocks; 4095,
+# odd, its carry in the first block, on 32), an odd width of 1025 whose
+# levels split down to 33 on 32 blocks, the audit's `msm_parts` (the kernels
+# line's row) and one group of 2^14 on 128 blocks
+GS_SHAPES = ((2, 1), (4, 1), (300, 1), (4095, 1), (1025, 1),
+             (2 * N_BLOCKS, 2), (1 << 14, 1))
+
+
 def check_group_sum(dev, rng, ops):
-    """group_sum at the audit's `msm_parts` shape (2048 stacked lanes, two
-    parts, some lanes at infinity, P + P and P + (-P) inside a part) and at
-    300 lanes in one group (odd levels): limb for limb `ops.tree_sum` of
-    each group, equal to the golden sums; timed at the audit shape."""
+    """group_sum at GS_SHAPES (some lanes at infinity, P + P and P + (-P)
+    in the first level where a group has room): limb for limb `ops.tree_sum`
+    of each group, equal to the golden sums, one launch a call; timed, with
+    the plan it ran and the depth floor (levels x one add's latency).
+    Returns the audit shape's row with every shape in `shapes`."""
+    from porla_tpu_torch import native
     from porla_tpu_torch.curves import cuda_curve as cc
     from porla_tpu_torch.curves.weierstrass import index
     from porla_tpu_torch.golden import ecc
 
     cv = ops.curve
-    out = None
-    for B, nout in ((300, 1), (2 * N_BLOCKS, 2)):
+    rows = {}
+    for B, nout in GS_SHAPES:
+        g = B // nout
         pts = rand_points(rng, cv, B)
         for i in (0, 7, B - 1):
-            pts[i] = ecc.INF
-        half = B // nout // 2                           # first level pairs
-        pts[half + 8] = pts[8]                          # P + P
-        pts[half + 10] = ecc.neg(cv, pts[10])           # P + (-P)
+            if B > 8:
+                pts[i] = ecc.INF
+        half = g // 2                                   # first level pairs
+        if half > 10:
+            pts[half + 8] = pts[8]                      # P + P
+            pts[half + 10] = ecc.neg(cv, pts[10])       # P + (-P)
         P = jacobian(ops, pts, [1 + v for v in rand_below(rng, cv.p - 1, B)],
                      dev)
+        before = native.launches()["group_sum"]
         got = cc.group_sum(ops, P, nout)
-        g = B // nout
+        if native.launches()["group_sum"] - before != 1:
+            raise AssertionError(f"group_sum at ({B}, {nout}): not one "
+                                 f"launch")
         trees = [ops.tree_sum(index(P, slice(o * g, (o + 1) * g)))
                  for o in range(nout)]
         err = max(limb_err(index(got, slice(o, o + 1)), trees[o])
@@ -573,13 +595,20 @@ def check_group_sum(dev, rng, ops):
         plain_ms = timed_ms(lambda: cc.group_sum_plain(ops, P, nout), dev, 3)
         b_ms, b_by = bound(nout * (g - 1) * ADD * OPS_PER_FE_MUL,
                            (B + nout) * 3 * FE_BYTES)
-        row = dict(name="group_sum", shape=[B, 16], nout=nout, ms=ms,
-                   plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
-                   bound_by=b_by)
+        plan = cc.group_sum_plan(g)
+        rows[(B, nout)] = dict(
+            name="group_sum", shape=[B, 16], nout=nout, ms=ms,
+            plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            nb=plan.nb, levels=len(plan.apart) + len(plan.last))
+    add_ms = rows[(4, 1)]["ms"] - rows[(2, 1)]["ms"]
+    for row in rows.values():
+        row["depth_ms"] = row["levels"] * add_ms
         emit({"check": "group_sum", **{k: v for k, v in row.items()
                                        if k != "name"}})
-        out = row
-    return out
+    return dict(rows[(2 * N_BLOCKS, 2)], add_ms=add_ms, shapes={
+        f"{B}x{nout}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "depth_ms", "nb")}
+        for (B, nout), r in rows.items()})
 
 
 def state_err(a, b) -> int:
@@ -746,39 +775,49 @@ def check_k5_k6_modes(dev, rng, ops, N=MSM_CHECK_N, c=7):
                 shape=[nwin, N // bt, bt], c=c, **out)
 
 
-def check_k7(dev, rng, ops, B=N_BLOCKS, nbits=64):
-    """K7 at K3's shape (1024 lanes, 2 planes of 512) with 64-bit scalars
-    against its plain version and the golden model on K3's edge lanes; and
-    at nbits = 256 through its launch function: the same affine points as
-    K3."""
+# run_msm's K7 lanes (the libsecp256k1 vector's n): 18 blocks of 16 lanes
+# and a ragged block of 12
+K7_RAGGED = 300
+
+
+def check_k7(dev, rng, ops, B=N_BLOCKS, nbits=64, ragged=K7_RAGGED):
+    """K7 at K3's shape (1024 lanes, 2 planes of 512) and at `ragged` lanes
+    with 64-bit scalars against its plain version and the golden model on
+    K3's edge lanes; and at nbits = 256 through its launch function: the
+    same affine points as K3. Timed at K3's shape."""
     from porla_tpu_torch.curves import cuda_curve as cc
     from porla_tpu_torch.curves.weierstrass import index
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.golden import ecc
 
     cv = ops.curve
-    m1 = rand_points(rng, cv, B)
-    m0 = rand_points(rng, cv, B)
-    k = rand_below(rng, 1 << nbits, B)
-    m1[0] = ecc.INF
-    k[1] = 0
-    m0[2] = ecc.mul(cv, m1[2], k[2])                   # hi doubles, lo = inf
-    m0[3] = ecc.neg(cv, ecc.mul(cv, m1[3], k[3]))
-    m0[4] = ecc.INF
-    k[5] = (1 << nbits) - 1
-    M0 = jacobian(ops, m0, [1 + v for v in rand_below(rng, cv.p - 1, B)], dev)
-    M1 = jacobian(ops, m1, [1 + v for v in rand_below(rng, cv.p - 1, B)], dev)
-    sc = L.ints_to_tensor(k, dev)
-    hi, lo = cc.point_butterfly(ops, M0, M1, sc, nbits)
-    phi, plo = cc.window_butterfly_plain(ops, M0, M1, sc, nbits)
-    lanes = list(range(12))
-    t = [ecc.mul(cv, m1[i], k[i]) for i in lanes]
-    err = max(
-        check_points(ops, "K7 hi", hi, phi, lanes,
-                     [ecc.add(cv, m0[i], ti) for i, ti in zip(lanes, t)]),
-        check_points(ops, "K7 lo", lo, plo, lanes,
-                     [ecc.add(cv, m0[i], ecc.neg(cv, ti))
-                      for i, ti in zip(lanes, t)]))
+    err = 0
+    for n in (ragged, B):
+        m1 = rand_points(rng, cv, n)
+        m0 = rand_points(rng, cv, n)
+        k = rand_below(rng, 1 << nbits, n)
+        m1[0] = ecc.INF
+        k[1] = 0
+        m0[2] = ecc.mul(cv, m1[2], k[2])               # hi doubles, lo = inf
+        m0[3] = ecc.neg(cv, ecc.mul(cv, m1[3], k[3]))
+        m0[4] = ecc.INF
+        k[5] = (1 << nbits) - 1
+        M0 = jacobian(ops, m0, [1 + v for v in rand_below(rng, cv.p - 1, n)],
+                      dev)
+        M1 = jacobian(ops, m1, [1 + v for v in rand_below(rng, cv.p - 1, n)],
+                      dev)
+        sc = L.ints_to_tensor(k, dev)
+        hi, lo = cc.point_butterfly(ops, M0, M1, sc, nbits)
+        phi, plo = cc.window_butterfly_plain(ops, M0, M1, sc, nbits)
+        lanes = list(range(12)) + [n - 1]
+        t = [ecc.mul(cv, m1[i], k[i]) for i in lanes]
+        err = max(
+            err,
+            check_points(ops, f"K7 hi at {n}", hi, phi, lanes,
+                         [ecc.add(cv, m0[i], ti) for i, ti in zip(lanes, t)]),
+            check_points(ops, f"K7 lo at {n}", lo, plo, lanes,
+                         [ecc.add(cv, m0[i], ecc.neg(cv, ti))
+                          for i, ti in zip(lanes, t)]))
     # 256 bits through the launch function: K3's affine points
     k256 = L.ints_to_tensor(rand_below(rng, cv.n, B), dev)
     whi, wlo = cc.launch_window_butterfly(ops, M0, M1, k256, 256)
@@ -1126,11 +1165,15 @@ def run_msm(dev, kat_path):
         (int(case["result"][0], 16), int(case["result"][1], 16)), nk,
         timed=1)
 
-    # K7 through the public butterfly (64-bit scalars)
+    # K7 through the public butterfly (64-bit scalars), held limb for limb
+    # against its plain version after the count is read
     kb = L.ints_to_tensor([rng.getrandbits(64) for _ in range(nk)], dev)
-    cc.point_butterfly(secp, pk, pk, kb, nbits=64)
+    k7 = cc.point_butterfly(secp, pk, pk, kb, nbits=64)
     torch.cuda.synchronize(dev)
     total = native.launches()
+    if limb_err(k7, cc.window_butterfly_plain(secp, pk, pk, kb, 64)):
+        raise AssertionError(f"K7 at {nk} lanes differs from its plain "
+                             f"version")
 
     # where one MSM's seconds go, and K5 / K6 at the shapes of record; on
     # secp256k1 also their plain versions at that shape
@@ -1346,12 +1389,12 @@ PROTOCOL_KERNELS = ("ntt_stage", "scalar_mul_window", "scalar_mul_glv",
 
 
 def check_bn254(dev, rng) -> dict:
-    """Every kernel of the KZG path held on BN254 G1 operands at that
-    path's shapes, as the secp256k1 checks hold them: K1's q lane mod r at
-    (1024, 128, 16), K2 in both modes, K3 at 1024 lanes, K4 at
-    KZG_FB_SHAPES over the SRS of a random tau (not the protocol's, so the
-    KZG cycle builds its own table), group_sum at the audit's parts.
-    Returns kernel name -> its BN254 row."""
+    """Every curve kernel held on BN254 G1 operands, as the secp256k1
+    checks hold them: K1's q lane mod r at (1024, 128, 16), K2 in both
+    modes, K3 at 1024 lanes, K4 at KZG_FB_SHAPES over the SRS of a random
+    tau (not the protocol's, so the KZG cycle builds its own table),
+    group_sum at GS_SHAPES, K7 at 1024 lanes and 64 bits (no path of the
+    KZG scheme runs it). Returns kernel name -> its BN254 row."""
     from porla_tpu_torch.commit import kzg
     from porla_tpu_torch.config import NUM_CHUNKS
     from porla_tpu_torch.curves.instances import bn254
@@ -1367,6 +1410,7 @@ def check_bn254(dev, rng) -> dict:
     k4_rows = check_k4(dev, rng, ops, KZG_FB_SHAPES, srs.g1_powers)
     rows["fixed_base"] = k4_row(k4_rows)
     rows["group_sum"] = check_group_sum(dev, rng, ops)
+    rows["point_butterfly_window"] = check_k7(dev, rng, ops)
     for name, row in rows.items():
         emit(dict(check=f"{name} bn254", **{k: v for k, v in row.items()
                                             if k != "name"}))
@@ -1495,10 +1539,12 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "shape": r["shape"],
             "launches_per_phase": per_phase,
-            **{k: r[k] for k in ("shapes", "update_fold") if k in r},
+            **{k: r[k] for k in ("shapes", "update_fold", "depth_ms",
+                                 "add_ms", "nb") if k in r},
             **({"bn254": {k: b[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err", "shapes", "lane") if k in b}} if b else {}),
+                "max_abs_err", "shapes", "lane", "depth_ms", "add_ms")
+                if k in b}} if b else {}),
         })
     emit({"kernels": rows})
     print(card_line(), flush=True)

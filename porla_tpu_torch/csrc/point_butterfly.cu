@@ -6,7 +6,7 @@
 //   128-bit halves). Replaces porla_tpu/curves/pallas_curve.py::
 //   _glv_butterfly_kernel (built by _glv_butterfly_call).
 // - K7 (windowed, every other scalar width): s*M1 over the low nbits of s in
-//   4-bit windows, one thread a lane. Replaces ::_butterfly_kernel (built by
+//   4-bit windows, then both adds. Replaces ::_butterfly_kernel (built by
 //   _butterfly_call).
 //
 // Bound on this card: operations (one scalar mul, ~2,250 field products at
@@ -14,7 +14,7 @@
 // two adds a lane, against ~420 bytes read and written, packed). At the main
 // path's 1024 lanes a lane's chain of dependent field products is the time:
 // one thread's 8-word product is a chain of ~16 carry chains, and no other
-// warp waits on a scheduler to hide its latency. What K3's design does about
+// warp waits on a scheduler to hide its latency. What the design does about
 // it:
 // - The two GLV halves run as separate chains, k1*q1 and k2*q2, each 32
 //   windows of 4 doublings and one table add (CurveOps.scalar_mul over 128
@@ -29,7 +29,10 @@
 // - Both groups of a lane hold the halves' sum; both add it to M0 (the same
 //   operands in the same order), then one writes M0 + t and the other
 //   M0 - t.
-// K7 is still one thread a lane (pt_smul_window, its table in local memory).
+// - K7 is K2's windowed mode on the same form: one group of 8 threads a
+//   lane runs c_smul_window (its table in shared memory, CurveOps.
+//   scalar_mul's order), then both closing adds, so its limbs are
+//   window_butterfly_plain's. A lane is 8 threads, 1024 lanes 8,192 threads.
 #include <cuda_runtime.h>
 
 #include "porla_coop.cuh"
@@ -67,7 +70,9 @@ glv_butterfly_kernel(const int64_t* __restrict__ m0x,
   c_store_pt(h ? lx : hx, h ? ly : hy, h ? lz : hz, lane, k, r);
 }
 
-__global__ void __launch_bounds__(128)
+// Threads 8l .. 8l + 7 of a block run lane l, thread k holding word k of
+// every element: s*M1 by the windowed chain, then both closing adds.
+__global__ void __launch_bounds__(COOP_THREADS)
 window_butterfly_kernel(const int64_t* __restrict__ m0x,
                         const int64_t* __restrict__ m0y,
                         const int64_t* __restrict__ m0z,
@@ -77,12 +82,20 @@ window_butterfly_kernel(const int64_t* __restrict__ m0x,
                         const int64_t* __restrict__ s, int nbits, int64_t* hx,
                         int64_t* hy, int64_t* hz, int64_t* lx, int64_t* ly,
                         int64_t* lz, int64_t B, Mod M) {
-  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  Pt t = pt_smul_window(pt_load(m1x, m1y, m1z, i), s + 16 * i, nbits, M);
-  Pt m0 = pt_load(m0x, m0y, m0z, i);
-  pt_store(hx, hy, hz, i, pt_add(m0, t, M));
-  pt_store(lx, ly, lz, i, pt_add(m0, pt_neg(t, M), M));
+  __shared__ uint32_t tab[45 * COOP_THREADS];
+  CMod C = c_mod(M);
+  int k = C.k;
+  int64_t lane = blockIdx.x * (int64_t)(COOP_THREADS / 8) + (threadIdx.x >> 3);
+  bool live = lane < B;               // the others compute lane 0 unseen:
+  int64_t i = live ? lane : 0;        // every thread votes and shuffles
+  CPt t = c_smul_window(c_load_pt(m1x, m1y, m1z, i, k), s + 16 * i, nbits,
+                        tab, C);
+  CPt m0 = c_load_pt(m0x, m0y, m0z, i, k);
+  CPt hi = c_padd(m0, t, C);
+  CPt lo = c_padd(m0, c_neg(t, C), C);
+  if (!live) return;
+  c_store_pt(hx, hy, hz, lane, k, hi);
+  c_store_pt(lx, ly, lz, lane, k, lo);
 }
 
 extern "C" int porla_point_butterfly(
@@ -109,8 +122,9 @@ extern "C" int porla_point_butterfly_window(
     int64_t* lx, int64_t* ly, int64_t* lz, int64_t B, const uint32_t* mod17,
     void* stream) {
   Mod M = mod_from_words(mod17);
-  unsigned blocks = (unsigned)((B + 127) / 128);
-  window_butterfly_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+  int per_block = COOP_THREADS / 8;
+  unsigned blocks = (unsigned)((B + per_block - 1) / per_block);
+  window_butterfly_kernel<<<blocks, COOP_THREADS, 0, (cudaStream_t)stream>>>(
       m0x, m0y, m0z, m1x, m1y, m1z, s, nbits, hx, hy, hz, lx, ly, lz, B, M);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
-// Cooperative field and point arithmetic of the curve kernels K2 and K3: one
-// field element on 8 neighbouring threads (a group), thread k holding its
-// 32-bit word k, so that a chain of dependent field products, which is the
-// time of a scalar mul at the protocol's lane counts, runs at the latency of
-// a few warp shuffles a row instead of one thread's 16 carry chains.
+// Cooperative field and point arithmetic of the curve kernels K2, K3, K7
+// and group_sum: one field element on 8 neighbouring threads (a group),
+// thread k holding its 32-bit word k, so that a chain of dependent field
+// products, which is the time of a scalar mul at the protocol's lane counts
+// (and of a tree of adds), runs at the latency of a few warp shuffles a row
+// instead of one thread's 16 carry chains.
 //
 // - A product is fe_mul's CIOS with the operand's words and the reduction
 //   factor passed by warp shuffles; a carry chain is resolved at once from
@@ -10,9 +11,10 @@
 //   on); a zero test is one vote. Every value stays canonical, so the words
 //   are those of the one-thread formulas (porla_field.cuh) and of the plain
 //   torch versions.
-// - A group's 15-entry window table (1d .. 15d; 0d is infinity) lies in
-//   shared memory, word-major with the thread fastest, so that the groups'
-//   digit-dependent reads do not conflict.
+// - A group's 15-entry window table (1d .. 15d; 0d is infinity; the TPU
+//   kernels' _build_table and _lookup) lies in shared memory, word-major
+//   with the thread fastest, so that the groups' digit-dependent reads do
+//   not conflict.
 // - Every shuffle and vote names the whole warp, so no call that holds one
 //   may sit under a condition that splits a warp: a ragged block computes
 //   lane 0 unseen in its dead lanes, and the doubling case of an add runs

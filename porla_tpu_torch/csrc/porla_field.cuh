@@ -4,13 +4,14 @@
 // resolved with selects (and the rare doubling case with a branch).
 //
 // Replaces the in-kernel helpers of the TPU kernels
-// (porla_tpu/curves/pallas_curve.py: _f_mul, _p_dbl, _p_add, _p_madd,
-// _build_table, _lookup; porla_tpu/ntt/pallas_stage.py: _add_mod, _sub_mod,
-// _cond_sub). The TPU computed a field product as a bf16 Toeplitz matrix
-// product over byte digits because its matrix unit is its only fast
-// multiplier; Hopper has a native 32x32->64-bit integer multiply-add, so a
-// product is plain CIOS Montgomery over 8 words (64 word products for a*b
-// plus 64 for the reduction) held entirely in registers.
+// (porla_tpu/curves/pallas_curve.py: _f_mul, _p_dbl, _p_add, _p_madd;
+// porla_tpu/ntt/pallas_stage.py: _add_mod, _sub_mod, _cond_sub; the window
+// tables, _build_table and _lookup, are porla_coop.cuh's). The TPU
+// computed a field product as a bf16 Toeplitz matrix product over byte
+// digits because its matrix unit is its only fast multiplier; Hopper has a
+// native 32x32->64-bit integer multiply-add, so a product is plain CIOS
+// Montgomery over 8 words (64 word products for a*b plus 64 for the
+// reduction) held entirely in registers.
 //
 // The public tensor layout is the port's (…, 16) int64 limbs of 16 bits;
 // fe_load/fe_store pack and unpack them. R = 2^256 in both layouts, so a
@@ -310,12 +311,6 @@ PORLA_HD Pt pt_inf(const Mod& M) {
   return r;
 }
 
-PORLA_HD Pt pt_neg(const Pt& p, const Mod& M) {
-  Pt r = p;
-  r.y = fe_sub(fe_zero(), p.y, M);
-  return r;
-}
-
 // dbl-2009-l (a = 0); infinity -> infinity and y = 0 -> infinity (Z3 = 2YZ)
 PORLA_PT Pt pt_dbl(const Pt& p, const Mod& M) {
   Fe A = fe_mul(p.x, p.x, M);
@@ -438,14 +433,6 @@ PORLA_PT Pt pt_madd(const Pt& p1, const Pt& p2, const Mod& M) {
   AddTerms t;
   Pt raw = madd_core(p1, p2, t, M);
   return pt_cases(raw, p1, p2, t.U1, t.U2, t.S1, t.S2, M);
-}
-
-// T[d] = d*P for d in 0..15 (T[0] = infinity)
-PORLA_PT void pt_table16(Pt* tbl, const Pt& p, const Mod& M) {
-  tbl[0] = pt_inf(M);
-  tbl[1] = p;
-  for (int d = 2; d < 16; d++)
-    tbl[d] = (d & 1) ? pt_add(tbl[d - 1], p, M) : pt_dbl(tbl[d >> 1], M);
 }
 
 PORLA_HD Pt pt_load(const int64_t* x, const int64_t* y, const int64_t* z,
@@ -598,22 +585,6 @@ PORLA_PT void tree_sum_slots(uint32_t* buf, int64_t stride, int m,
 // 4-bit window w (LSB first) of a scalar held as 16 int64 16-bit limbs
 PORLA_HD int nibble(const int64_t* s, int w) {
   return (int)((s[w >> 2] >> (4 * (w & 3))) & 0xF);
-}
-
-// Windowed (4-bit, MSB-first) scalar mul over the low nbits of s
-PORLA_PT Pt pt_smul_window(const Pt& p, const int64_t* s, int nbits,
-                           const Mod& M) {
-  Pt tbl[16];
-  pt_table16(tbl, p, M);
-  Pt acc = pt_inf(M);
-  for (int w = nbits / 4 - 1; w >= 0; w--) {
-    acc = pt_dbl(acc, M);
-    acc = pt_dbl(acc, M);
-    acc = pt_dbl(acc, M);
-    acc = pt_dbl(acc, M);
-    acc = pt_add(acc, tbl[nibble(s, w)], M);
-  }
-  return acc;
 }
 
 // Host-side argument packing shared by the C entry points

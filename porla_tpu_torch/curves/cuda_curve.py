@@ -12,23 +12,28 @@ launches the kernel or raises.
   MSMs run at nbits = 32; `CurveOps.scalar_mul`'s limbs) and GLV mode for
   nbits = 256, with the scalar split done on the host (`curves/glv.py`) and
   the halves as two chains added at the end (`glv_halves_plain`'s limbs);
-  each mode has its own launch count. K2 and K3 share the cooperative
-  arithmetic of `csrc/porla_coop.cuh` (8 threads a field element).
+  each mode has its own launch count.
 - K3 and K7 (`csrc/point_butterfly.cu`): (m0 + s*m1, m0 - s*m1) with the
   GLV halves k1*q1 and k2*q2 as two chains added at the end for 256-bit
-  scalars (K3) and the windowed scalar mul for every other width (K7,
-  `point_butterfly_window`), counted apart.
+  scalars (K3) and K2's windowed scalar mul, one group of 8 threads a lane,
+  for every other width (K7, `point_butterfly_window`), counted apart.
 - K4 (`csrc/fixed_base.cu`): scalar_i * G_(i mod ng) from packed
   per-window affine tables, per lane or summed within lane groups
   (`fb_msm_groups`) in the same launch.
 - `group_sum` (`csrc/group_sum.cu`): the sum of each of nout contiguous
   groups of points in `CurveOps.tree_sum`'s order, for `msm_parts` after K2
-  and for K4's groups too wide for a block.
+  and for K4's groups too wide for a block; a group's wide levels spread
+  over the blocks of `group_sum_plan`, one launch a call.
+
+K2, K3, K7 and `group_sum` share the cooperative arithmetic of
+`csrc/porla_coop.cuh` (8 threads a field element, one 32-bit word each).
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
+from dataclasses import dataclass
 
 import torch
 
@@ -228,8 +233,8 @@ def launch_point_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
 
 def launch_window_butterfly(ops: CurveOps, m0: JacPoint, m1: JacPoint,
                             scalars, nbits: int):
-    """K7 on checked CUDA operands, at any nbits that is a multiple of 4
-    up to 256 (256 is reached only from here, never from
+    """K7 on checked CUDA operands, 8 threads a lane, at any nbits that is
+    a multiple of 4 up to 256 (256 is reached only from here, never from
     `point_butterfly`)."""
     B = m0.x.shape[0]
     dev = m0.x.device
@@ -457,7 +462,7 @@ def launch_fixed_base(table: FbTable, scalars: torch.Tensor,
     native.KERNELS["fixed_base"].launches += 1
     native.check(rc, "fixed_base")
     if wide:
-        return _launch_group_sum(table.ops, None, part, nout, B)
+        return _launch_group_sum(table.ops, part, nout, B)
     return out
 
 
@@ -505,23 +510,58 @@ def group_sum(ops: CurveOps, points: JacPoint, nout: int) -> JacPoint:
     if points.x.device.type == "cpu":
         return group_sum_plain(ops, points, nout)
     native.require(points.x.device, *points)
-    part = torch.empty((24, B), dtype=torch.int32, device=points.x.device)
-    return _launch_group_sum(ops, points, part, nout, B)
+    return _launch_group_sum(ops, points, nout, B)
 
 
-def _launch_group_sum(ops: CurveOps, points, part: torch.Tensor, nout: int,
-                      B: int) -> JacPoint:
-    """group_sum's kernel over `points` (packed into `part` first), or over
-    points already packed in `part` ((3, 8, B) words) when `points` is
-    None."""
-    dev = part.device
+@dataclass(frozen=True)
+class GroupSumPlan:
+    """How `group_sum`'s kernel sums one group: nb blocks, each running the
+    levels of widths `apart` over its residue class of slots mod nb, then
+    the group's last block running the levels of widths `last` over the
+    partial sums."""
+    nb: int
+    apart: tuple[int, ...]
+    last: tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=None)
+def group_sum_plan(g: int) -> GroupSumPlan:
+    """The launch plan of a group of g >= 1 points (csrc/group_sum.cu). A
+    block of 128 threads runs 16 cooperative adds a round, so a group of
+    up to 32 points takes one block (a level is one round there anyway);
+    a wider one takes nb = 2^floor(log2(g) / 2) blocks, about sqrt(g),
+    which balances the rounds the blocks run apart (about g / (16 nb))
+    against the last block's (about nb / 16). The blocks run the first
+    level (it reads only the input) and each later level while nb divides
+    the half of its width; the last block runs the rest."""
+    nb = 1 if g <= 32 else 1 << (g.bit_length() - 1) // 2
+    widths = []
+    m = g
+    while m > 1:
+        widths.append(m)
+        m = m // 2 + m % 2
+    k = next((i for i, m in enumerate(widths) if i and (m // 2) % nb),
+             len(widths))
+    return GroupSumPlan(nb, tuple(widths[:k]), tuple(widths[k:]))
+
+
+def _launch_group_sum(ops: CurveOps, points, nout: int, B: int) -> JacPoint:
+    """group_sum's kernel over `points`: a JacPoint of (B, 16) limbs, or
+    K4's packed (24, B) words; `group_sum_plan` of the group width."""
+    packed = isinstance(points, torch.Tensor)
+    dev = points.device if packed else points.x.device
+    g = B // nout
+    nb = group_sum_plan(g).nb
     out = JacPoint(*(torch.empty((nout, L.NLIMBS), dtype=torch.int64,
                                  device=dev) for _ in range(3)))
-    src = [None] * 3 if points is None else list(map(native.ptr, points))
+    src = ([None] * 3 + [native.ptr(points)] if packed
+           else list(map(native.ptr, points)) + [None])
+    part = torch.empty((24, B), dtype=torch.int32, device=dev)
+    count = torch.zeros(nout if nb > 1 else 0, dtype=torch.int32, device=dev)
     lib = native.library()
-    rc = lib.porla_group_sum(*src, native.ptr(part), *map(native.ptr, out),
-                             B, B // nout, native.mod_words(ops.fp),
-                             native.stream(dev))
+    rc = lib.porla_group_sum(*src, native.ptr(part), native.ptr(count),
+                             *map(native.ptr, out), B, g, nb,
+                             native.mod_words(ops.fp), native.stream(dev))
     native.KERNELS["group_sum"].launches += 1
     native.check(rc, "group_sum")
     return out

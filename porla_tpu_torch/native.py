@@ -104,7 +104,7 @@ _SIGNATURES = {
     "porla_point_butterfly_window": [_P] * 7 + [_I32] + [_P] * 6
                                     + [_I64, _P, _P],
     "porla_fixed_base": [_P] * 6 + [_I64] + [_I32] * 4 + [_P, _P],
-    "porla_group_sum": [_P] * 7 + [_I64, _I32, _P, _P],
+    "porla_group_sum": [_P] * 9 + [_I64] + [_I32] * 2 + [_P, _P],
     "porla_pip_bucket": [_P] * 5 + [_I32] * 6 + [_P, _P],
     "porla_bucket_fold": [_P] * 5 + [_I32] * 4 + [_P, _P],
 }

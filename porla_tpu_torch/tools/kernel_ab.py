@@ -1,5 +1,5 @@
-"""Time K1 and K2 (and K3 as a control) of one source tree on the card, to
-compare trees within one machine session.
+"""Time K1, K2, K7 and group_sum (and K3 as a control) of one source tree
+on the card, to compare trees on one machine, run after run.
 
     python3 porla_tpu_torch/tools/kernel_ab.py TREE LABEL OUTDIR
 
@@ -13,7 +13,14 @@ card (the host's launch cost included: `call_ms`):
   in the p lane, each checked against the plain stage loop;
 - K2 GLV at 1024 lanes and at 1 lane, K2 windowed at 2048 lanes and 32
   bits, K3 at 1024 lanes, each checked against exact golden points on its
-  first 16 lanes.
+  first 16 lanes;
+- K7 at 1024 lanes and 64 bits, and K2 windowed at the same shape (the
+  same chain without the two closing adds), checked against their plain
+  versions;
+- group_sum at the audit's 2048 lanes in 2 groups and at one group of
+  4095 and of 4094 points (the widest `kernels.msm` sends below its
+  crossover; the second's half, 2047, keeps its levels from splitting),
+  checked against its plain version.
 It writes OUTDIR/LABEL.json with the times, the launch counts and a digest
 of each output (equal digests: the same words).
 """
@@ -147,6 +154,56 @@ def main(tree: str, label: str, outdir: str) -> None:
         except Exception as e:
             res[name] = {"error": repr(e)[:400]}
         print(label, name, res[name], flush=True)
+
+    def equal(a, b):
+        return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+    for name, B, nbits in (("k7_1024_64", 1024, 64),
+                           ("window_1024_64", 1024, 64)):
+        p = pts(B)
+        p[0] = ecc.INF
+        P = ops.from_affine(p, dev)
+        S = L.ints_to_tensor([r.getrandbits(nbits) for _ in range(B)], dev)
+        try:
+            if name.startswith("k7"):
+                m0 = ops.from_affine(pts(B), dev)
+                fn = lambda: cc.launch_window_butterfly(ops, m0, P, S, nbits)
+                hi, lo = fn()
+                phi, plo = cc.window_butterfly_plain(ops, m0, P, S, nbits)
+                ok = equal(hi, phi) and equal(lo, plo)
+                out = (*hi, *lo)
+            else:
+                fn = lambda: cc.launch_scalar_mul_window(ops, P, S, nbits)
+                out = fn()
+                ok = equal(out, ops.scalar_mul(P, S, nbits))
+            res[name] = {"ms": timed(fn), "call_ms": timed(fn, spin=False),
+                         "equal_plain": ok, "digest": digest(*out)}
+        except Exception as e:
+            res[name] = {"error": repr(e)[:400]}
+        print(label, name, res[name], flush=True)
+
+    def distinct(B):
+        """B distinct multiples of a random point, shuffled."""
+        step = ecc.mul(cv, cv.g, r.randrange(1, cv.n))
+        out = [step]
+        while len(out) < B:
+            out.append(ecc.add(cv, out[-1], step))
+        r.shuffle(out)
+        return out
+
+    for B, nout in ((2048, 2), (4095, 1), (4094, 1)):
+        key = f"group_sum_{B}_{nout}"
+        try:
+            P = ops.from_affine(distinct(B), dev)
+            fn = lambda: cc.group_sum(ops, P, nout)
+            out = fn()
+            res[key] = {"ms": timed(fn), "call_ms": timed(fn, spin=False),
+                        "equal_plain": equal(out, cc.group_sum_plain(
+                            ops, P, nout)),
+                        "digest": digest(*out)}
+        except Exception as e:
+            res[key] = {"error": repr(e)[:400]}
+        print(label, key, res[key], flush=True)
 
     os.makedirs(outdir, exist_ok=True)
     with open(os.path.join(outdir, f"{label}.json"), "w") as f:
