@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   `porla_tpu_torch/csrc/` (seven sources, one `nvcc` each, in parallel) and
+   `porla_tpu_torch/csrc/` (seven sources, one `nvcc` each, in parallel)
+   and the native host runtime (`runtime/native/porla_rt.cc`, g++) and
    prints the build seconds.
 2. Holds each kernel (K1 ntt_stage, K2 scalar_mul in its windowed and
    GLV modes, K3 point_butterfly, K4 fixed_base, group_sum, K5 pip_bucket,
@@ -45,6 +46,24 @@
    exactly 4 times (two CRT arrays of two lanes). K3 is then checked and
    timed at the widest butterfly the IPA updates launched.
 4. Runs the MSM entry point (see `run_msm`).
+5. Runs the out-of-core tier (`run_ooc`): (d) the IPA scheme at n = 2^14
+   blocks with the default caching level (10) and stripe (4096 blocks):
+   initialize, whose streamed CRebuild writes level 14 into H_X/H_Y files
+   through staging files, an audit, 4 updates, an audit, an audit of a
+   flipped bit in a sampled codeword file (refused; the byte is then
+   restored), a checkpoint, a restored server on the card and its audit;
+   the peak host RSS and `torch.cuda.max_memory_allocated` over the
+   initialize, and the host spans (`stream.*`, `server.crebuild`). (e) both
+   schemes at n = 1024 with levels above 4 in files and stripes of 8: 64
+   updates, an audit after update 32 (level 5 streamed into files) and 64
+   (level 6, whose lower is level 5's files), then the same corrupted
+   audit, checkpoint, restore and audit. K2, K3, K4 and group_sum must be
+   launched by each run, K1 by no streamed CRebuild; K3 and K4 are then
+   checked and timed at (d)'s widest launches, and K2, K4 and group_sum at
+   every other shape these runs launched that phase 2 did not hold (on
+   each run's curve). Beside the runs: the native runtime's file IO at
+   (d)'s staging shape and the card's time for the plain butterfly over
+   one stripe.
 Any failed phase raises, so the script exits nonzero and prints no result.
 It exits nonzero when torch finds no CUDA device or the port's package is
 not beside it.
@@ -307,26 +326,30 @@ def check_k1(dev, rng, n=N_BLOCKS, chunks=128, big=1 << 14, scheme="ipa",
                         for r in rows])
 
 
-def check_k2(dev, rng, ops):
-    """K2 windowed at the server's audit-MSM shape (2048 lanes, nbits 32)
-    and GLV at the MAC-plane scaling shapes (1024 lanes at initialize, 1
-    lane in every update): bit-identical to the plain versions, the edge
-    lanes (infinity, scalars 0, 1, n - 1 or 2^nbits - 1) equal to the golden
-    model. The timed calls are the launches alone: the GLV split is made
-    once. Returns the windowed row and the GLV row (1024 lanes, with both
-    shapes in `shapes`)."""
+# K2's checked shapes (lanes, nbits): windowed at the server's audit-MSM
+# shape, GLV (nbits 256) at the MAC-plane scaling shapes (1024 lanes at
+# initialize, 1 lane in every update)
+K2_SHAPES = ((2 * N_BLOCKS, 32), (N_BLOCKS, 256), (1, 256))
+
+
+def check_k2(dev, rng, ops, shapes=K2_SHAPES):
+    """K2 at `shapes` (the windowed mode below 256 bits, GLV at 256):
+    bit-identical to the plain versions, the edge lanes (infinity, scalars
+    0, 1, n - 1 or 2^nbits - 1) equal to the golden model. The timed calls
+    are the launches alone: the GLV split is made once. Returns one row a
+    shape."""
     from porla_tpu_torch.curves import cuda_curve as cc
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.golden import ecc
 
     cv = ops.curve
     rows = []
-    for B, nbits in ((2 * N_BLOCKS, 32), (N_BLOCKS, 256), (1, 256)):
+    for B, nbits in shapes:
         pts = rand_points(rng, cv, B)
         zs = [1 + v for v in rand_below(rng, cv.p - 1, B)]
         top = (1 << nbits) if nbits < 256 else cv.n
         k = rand_below(rng, top, B)
-        if B > 1:
+        if B > 3:
             pts[0] = ecc.INF                           # infinity input
             k[1], k[2], k[3] = 0, 1, top - 1           # 0, 1, n - 1 / 2^nbits - 1
         P = jacobian(ops, pts, zs, dev)
@@ -360,13 +383,25 @@ def check_k2(dev, rng, ops):
                          bound_by=b_by))
         emit(dict(check=name, **{k: v for k, v in rows[-1].items()
                                  if k != "name"}))
-    glv = [r for r in rows if r["name"] == "scalar_mul_glv"]
-    return [rows[0], dict(glv[0], max_abs_err=max(r["max_abs_err"]
-                                                  for r in glv),
-                          shapes={f"{r['shape'][0]} lanes":
-                                  {k: r[k] for k in ("ms", "plain_ms",
-                                                     "bound_ms", "bound_by")}
-                                  for r in glv})]
+    return rows
+
+
+def k2_rows(rows) -> list[dict]:
+    """The kernels line's two K2 rows (windowed, GLV), each at its first
+    checked shape, with the worst error and every shape under `shapes`."""
+    out = []
+    for name in ("scalar_mul_window", "scalar_mul_glv"):
+        mode = [r for r in rows if r["name"] == name]
+        out.append(dict(mode[0], max_abs_err=max(r["max_abs_err"]
+                                                 for r in mode),
+                        shapes=k2_shapes(mode)))
+    return out
+
+
+def k2_shapes(rows) -> dict:
+    return {f"{r['shape'][0]} lanes, {r['nbits']} bits":
+            {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+            for r in rows}
 
 
 def k3_inputs(dev, rng, ops, B):
@@ -454,7 +489,7 @@ def fb_edge_scalars(rng, B, nbits, n):
     top = 1 << nbits
     k = rand_below(rng, top, B)
     edges = [0, 1] + [v for v in (n - 1, n) if v < top] + [top - 1]
-    k[:len(edges)] = edges
+    k[:len(edges)] = edges[:B]
     return k
 
 
@@ -515,7 +550,8 @@ def check_k4(dev, rng, ops, shapes=FB_SHAPES, gens_aff=None):
         else:
             run = lambda: cc.fb_scalar_mul(tbl, sc)
             plain = lambda: cc.fb_scalar_mul_plain(tbl, sc)
-            lanes = list(range(8)) + [B - 1 - i for i in range(4)]
+            lanes = sorted({*range(8), *(B - 1 - i for i in range(4))}
+                           & set(range(B)))
             want = [ecc.mul(cv, bases[i % ng], k[i]) for i in lanes]
         split = cc.fb_split(B, B // nout if nout else 1)
         if name == "wide_group":
@@ -548,12 +584,14 @@ GS_SHAPES = ((2, 1), (4, 1), (300, 1), (4095, 1), (1025, 1),
              (2 * N_BLOCKS, 2), (1 << 14, 1))
 
 
-def check_group_sum(dev, rng, ops):
-    """group_sum at GS_SHAPES (some lanes at infinity, P + P and P + (-P)
+def check_group_sum(dev, rng, ops, shapes=GS_SHAPES, add_ms=None,
+                    row_at=(2 * N_BLOCKS, 2)):
+    """group_sum at `shapes` (some lanes at infinity, P + P and P + (-P)
     in the first level where a group has room): limb for limb `ops.tree_sum`
     of each group, equal to the golden sums, one launch a call; timed, with
-    the plan it ran and the depth floor (levels x one add's latency).
-    Returns the audit shape's row with every shape in `shapes`."""
+    the plan it ran and the depth floor (levels x one add's latency
+    `add_ms`, by default the difference of the (4, 1) and (2, 1) shapes).
+    Returns the row at `row_at` with every shape in `shapes`."""
     from porla_tpu_torch import native
     from porla_tpu_torch.curves import cuda_curve as cc
     from porla_tpu_torch.curves.weierstrass import index
@@ -561,7 +599,7 @@ def check_group_sum(dev, rng, ops):
 
     cv = ops.curve
     rows = {}
-    for B, nout in GS_SHAPES:
+    for B, nout in shapes:
         g = B // nout
         pts = rand_points(rng, cv, B)
         for i in (0, 7, B - 1):
@@ -600,12 +638,13 @@ def check_group_sum(dev, rng, ops):
             name="group_sum", shape=[B, 16], nout=nout, ms=ms,
             plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
             nb=plan.nb, levels=len(plan.apart) + len(plan.last))
-    add_ms = rows[(4, 1)]["ms"] - rows[(2, 1)]["ms"]
+    if add_ms is None:
+        add_ms = rows[(4, 1)]["ms"] - rows[(2, 1)]["ms"]
     for row in rows.values():
         row["depth_ms"] = row["levels"] * add_ms
         emit({"check": "group_sum", **{k: v for k, v in row.items()
                                        if k != "name"}})
-    return dict(rows[(2 * N_BLOCKS, 2)], add_ms=add_ms, shapes={
+    return dict(rows[row_at], add_ms=add_ms, shapes={
         f"{B}x{nout}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "depth_ms", "nb")}
         for (B, nout), r in rows.items()})
@@ -1403,7 +1442,7 @@ def check_bn254(dev, rng) -> dict:
     ops = bn254()
     rows = {"ntt_stage": check_k1(dev, rng, big=N_BLOCKS, scheme="kzg",
                                   lanes=("q",))}
-    window, glv = check_k2(dev, rng, ops)
+    window, glv = k2_rows(check_k2(dev, rng, ops))
     rows[window["name"]], rows[glv["name"]] = window, glv
     rows["point_butterfly"] = check_k3(dev, rng, ops)
     srs = kzg.KzgSrs.from_tau(rand_below(rng, BN254_R, 1)[0], NUM_CHUNKS)
@@ -1421,10 +1460,274 @@ def k4_row(k4_rows) -> dict:
     """The kernels line's K4 row: the commit_blocks shape (initialize's,
     or the KZG server's), with every shape beside it."""
     return dict(next(r for r in k4_rows if r["case"] == "commit_blocks"),
-                shapes={r["case"]: {k: r[k] for k in ("shape", "nout", "nbits",
-                                                      "ms", "plain_ms",
-                                                      "bound_ms", "split")}
-                        for r in k4_rows})
+                shapes=k4_shapes(k4_rows))
+
+
+def k4_shapes(k4_rows) -> dict:
+    return {r["case"]: {k: r[k] for k in ("shape", "nout", "nbits", "ms",
+                                          "plain_ms", "bound_ms", "split")}
+            for r in k4_rows}
+
+
+# --- phase 5: the out-of-core tier ---------------------------------------------
+
+OOC_N = 1 << 14      # path (d): 64 MiB of data, 16x the cached path's n
+OOC_UPDATES = 4
+# path (e): the streamed fold at the cached path's n, levels above 4 in
+# files, stripes of 8 blocks; audits after updates 32 and 64
+OOC_E = dict(top_caching_level=4, stream_stripe_blocks=8)
+OOC_E_UPDATES = 64
+OOC_KERNELS = ("scalar_mul_window", "scalar_mul_glv", "point_butterfly",
+               "fixed_base", "group_sum")
+
+
+class RssPeak:
+    """The peak resident set of this process while it runs: sampled every
+    10 ms from /proc/self/statm by a thread (the card's machine reports no
+    VmHWM)."""
+
+    def __enter__(self):
+        import threading
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.peak = self._rss()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _run(self):
+        while not self.stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=5)
+        self.peak = max(self.peak, self._rss())
+        self.mib = self.peak / 2 ** 20
+
+
+def store_io(store_dir, n=OOC_N, record=8192):
+    """The native runtime's batched file IO on this host's disk at (d)'s
+    staging shape (n files of one 8 KiB staging record), on 8 and 32
+    threads: seconds to write and read them, then to delete them (32
+    threads)."""
+    import numpy as np
+    from porla_tpu_torch.runtime import lib as rt
+    os.makedirs(store_dir, exist_ok=True)
+    paths = [os.path.join(store_dir, f"io_{i}") for i in range(n)]
+    data = np.random.default_rng(SEED).integers(0, 256, n * record,
+                                                dtype=np.uint8)
+    for threads in (8, 32):
+        t0 = time.perf_counter()
+        rt.write_files(paths, record, data, threads)
+        t1 = time.perf_counter()
+        back = rt.read_files(paths, record, threads=threads)
+        t2 = time.perf_counter()
+        if not np.array_equal(back, data):
+            raise AssertionError("store_io: the files read back differ")
+        emit({"store_io": {"files": n, "bytes": record, "threads": threads,
+                           "write_s": t1 - t0, "read_s": t2 - t1}})
+    t0 = time.perf_counter()
+    rt.delete_files(paths)
+    emit({"store_io": {"files": n, "delete_s": time.perf_counter() - t0}})
+
+
+def stripe_butterfly(dev, pairs: int) -> None:
+    """The card's part of a streamed stage over one stripe: the plain torch
+    butterfly (`compute.data_butterfly`) over `pairs` pairs of (128,
+    16)-limb CRT lanes, ms on the card's timeline (median of 3)."""
+    import numpy as np
+    from porla_tpu_torch.ntt.engine import CrtArray, NttContext
+    from porla_tpu_torch.protocol import compute
+    ctx = NttContext(OOC_N, "ipa")
+    rng = np.random.default_rng(SEED + 3)
+    a0, a1 = (CrtArray(*(torch.from_numpy(rng.integers(
+        0, 1 << 15, (pairs, 128, 16))).to(dev) for _ in range(2)))
+        for _ in range(2))
+    tw = ctx.twiddles(pairs)
+    ms = timed_ms(lambda: compute.data_butterfly(ctx.mod_q, a0, a1, tw),
+                  dev, 3)
+    emit({"stripe_butterfly": {"pairs": pairs, "ms": ms}})
+
+
+class PhaseLog:
+    """Runs a path's phases, each with its host seconds (the card
+    synchronised at its end) and its kernels' launches; emits a line each."""
+
+    def __init__(self, path: str, scheme: str, dev):
+        self.path, self.scheme, self.dev = path, scheme, dev
+        self.records = []
+
+    def __call__(self, name, fn, **attrs):
+        from porla_tpu_torch import native
+        before = native.launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(self.dev)
+        rec = {"path": self.path, "phase": name, "scheme": self.scheme,
+               **attrs, "s": time.perf_counter() - t0,
+               "launches": {k: v - before[k]
+                            for k, v in native.launches().items()}}
+        self.records.append(rec)
+        emit(rec)
+        return out
+
+
+def corrupt_sampled_file(server, seed: bytes):
+    """Flip one bit in a codeword file that the audit of `seed` samples
+    with a nonzero coefficient from a file-backed level. Returns (path,
+    original bytes) to restore."""
+    from porla_tpu_torch.protocol import auditing
+    plan = auditing.build_audit_plan(seed, server.write_step,
+                                     server.num_blocks, server.height)
+    hit = next(s for s in plan.samples
+               if server.levels[s.level].file_backed
+               and s.coeff % server.mod_q.n)
+    path = os.path.join(server.config.storage_dir,
+                        "H_X" if hit.is_x else "H_Y",
+                        f"{hit.level}_{hit.index}")
+    with open(path, "rb") as f:
+        orig = f.read()
+    bad = bytearray(orig)
+    bad[33] ^= 1
+    with open(path, "wb") as f:
+        f.write(bytes(bad))
+    return path, orig
+
+
+def check_staging_empty(store_dir, where) -> None:
+    left = os.listdir(os.path.join(store_dir, "STG"))
+    if left:
+        raise AssertionError(f"{len(left)} staging files left after {where}")
+
+
+def run_ooc(dev, store_dir, scheme, n, updates, audit_after, **cfg_kw):
+    """An out-of-core cycle on the card through the entry points: initialize
+    (the streamed CRebuild of the top level into H_X/H_Y files), an audit,
+    `updates` round-robin updates with an audit after each count in
+    `audit_after` (and after the last), an audit of a corrupted codeword
+    file (refused; the byte is then restored), a checkpoint, a server
+    restored from it on the card and an audit. Returns (PhaseLog, launches
+    over the path, the shapes its kernels were launched at, the
+    initialize's memory line). The shapes: "k3" the lanes of every K3
+    launch, "k4" the (lanes, groups, bases, nbits) of every K4 launch, "k2"
+    the (lanes, nbits) of every K2 launch, "group_sum" the (points, groups)
+    of every group_sum call on points."""
+    import numpy as np
+    from porla_tpu_torch import native
+    from porla_tpu_torch.config import PorlaConfig
+    from porla_tpu_torch.curves import cuda_curve as cc
+    from porla_tpu_torch.protocol.client import AuditError, PorlaClient
+    from porla_tpu_torch.protocol.server import PorlaServer
+    from porla_tpu_torch.protocol.transport import InProcTransport
+
+    rng = np.random.default_rng(SEED + 2)
+    seed = lambda: rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+    cfg = PorlaConfig(scheme=scheme, storage_dir=store_dir, **cfg_kw)
+    server = PorlaServer(cfg, device=dev)
+    client = PorlaClient(cfg, InProcTransport(server), data_seed=seed(),
+                         device=dev)
+    path = "ooc" if n == OOC_N else "ooc_e"
+    log = PhaseLog(path, scheme, dev)
+    shapes = {"k3": [], "k4": [], "k2": [], "group_sum": []}
+    wrapped = ("point_butterfly", "launch_fixed_base",
+               "launch_scalar_mul_window", "launch_scalar_mul_glv",
+               "group_sum")
+    launch_fns = {name: getattr(cc, name) for name in wrapped}
+
+    def k3(ops, m0, m1, scalars, nbits=256):
+        if nbits == 256:
+            shapes["k3"].append(m0.x.shape[0])
+        return launch_fns["point_butterfly"](ops, m0, m1, scalars, nbits)
+
+    def k4(table, scalars, nout):
+        shapes["k4"].append((scalars.shape[0], nout, table.ng, table.nbits))
+        return launch_fns["launch_fixed_base"](table, scalars, nout)
+
+    def k2_window(ops, p, scalars, nbits):
+        shapes["k2"].append((p.x.shape[0], nbits))
+        return launch_fns["launch_scalar_mul_window"](ops, p, scalars, nbits)
+
+    def k2_glv(ops, p, g):
+        shapes["k2"].append((p.x.shape[0], 256))
+        return launch_fns["launch_scalar_mul_glv"](ops, p, g)
+
+    def group_sum(ops, points, nout):
+        shapes["group_sum"].append((points.x.shape[0], nout))
+        return launch_fns["group_sum"](ops, points, nout)
+
+    def update():
+        client.update(client.write_step % client.num_blocks + 1)
+
+    for name, fn in zip(wrapped, (k3, k4, k2_window, k2_glv, group_sum)):
+        setattr(cc, name, fn)
+    try:
+        native.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with RssPeak() as rss:
+            log("initialize", lambda: client.initialize(n))
+        memory = {"path": path, "scheme": scheme, "phase": "initialize",
+                  "host_rss_peak_mib": rss.mib,
+                  "cuda_max_allocated_mib":
+                      torch.cuda.max_memory_allocated(dev) / 2 ** 20}
+        emit(memory)
+        top = server.height - 1
+        size = os.path.getsize(os.path.join(store_dir, "H_X", f"{top}_0"))
+        if not server.levels[top].file_backed or size != 4096:
+            raise AssertionError(f"{path}: level {top} is not in its files")
+        if log.records[0]["launches"]["ntt_stage"]:
+            raise AssertionError(f"{path}: the streamed CRebuild launched K1")
+        check_staging_empty(store_dir, "initialize")
+        log("audit", lambda: client.audit(seed=seed()))
+        for step in range(1, updates + 1):
+            log("update", update, step=step)
+            # the level this update folded into: above the caching level
+            # it must now live in files, the levels below it emptied
+            level = (step & -step).bit_length() - 1
+            if cfg.top_caching_level < level < top and (
+                    not server.levels[level].file_backed
+                    or not all(lv.empty for lv in server.levels[:level])):
+                raise AssertionError(f"{path}: update {step} did not fold "
+                                     f"into the files of level {level}")
+            check_staging_empty(store_dir, f"update {step}")
+            if step in audit_after or step == updates:
+                log("audit", lambda: client.audit(seed=seed()))
+
+        def corrupted():
+            try:
+                client.audit(seed=audit_seed)
+            except AuditError:
+                return
+            raise AssertionError(f"{path}: the audit accepted a corrupted "
+                                 f"codeword file")
+
+        audit_seed = seed()
+        bad_path, orig = corrupt_sampled_file(server, audit_seed)
+        try:
+            log("audit_corrupted", corrupted)
+        finally:
+            with open(bad_path, "wb") as f:
+                f.write(orig)
+
+        def restore():
+            client.transport = InProcTransport(PorlaServer.restore(
+                cfg, device=dev))
+        log("checkpoint", server.save_checkpoint)
+        log("restore", restore)
+        log("resume_audit", lambda: client.audit(seed=seed()))
+        total = native.launches()
+    finally:
+        for name, fn in launch_fns.items():
+            setattr(cc, name, fn)
+    missing = [k for k in OOC_KERNELS if total[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the {path} {scheme} "
+                             f"run: {missing}")
+    return log, total, shapes, memory
 
 
 def main() -> int:
@@ -1438,7 +1741,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
     from porla_tpu_torch import native
-    from porla_tpu_torch.curves.instances import secp256k1
+    from porla_tpu_torch.config import PorlaConfig
+    from porla_tpu_torch.curves.instances import bn254, secp256k1
+    from porla_tpu_torch.runtime import lib as rt
     from porla_tpu_torch.utils import trace
 
     card = card_line()
@@ -1448,8 +1753,12 @@ def main() -> int:
     t0 = time.perf_counter()
     so = native.build()
     native.library()
-    emit({"build_s": time.perf_counter() - t0,
-          "library": os.path.relpath(so, HERE)})
+    t1 = time.perf_counter()
+    rt_so = rt.build()
+    rt.library()
+    emit({"build_s": t1 - t0, "library": os.path.relpath(so, HERE),
+          "runtime_build_s": time.perf_counter() - t1,
+          "runtime": os.path.relpath(rt_so, HERE)})
     for src, log in native.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "stack frame" in line and \
@@ -1459,7 +1768,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     ops = secp256k1()
     k1 = check_k1(dev, rng)
-    k2 = check_k2(dev, rng, ops)
+    k2 = k2_rows(check_k2(dev, rng, ops))
     k3 = check_k3(dev, rng, ops)
     emit(dict(check="point_butterfly",
               launches=native.launches()["point_butterfly"],
@@ -1515,6 +1824,85 @@ def main() -> int:
     emit(dict(check="point_butterfly update_fold", **{
         k: v for k, v in k3["update_fold"].items() if k != "name"}))
 
+    # (d) the out-of-core tier at n = 2^14 with the default caching level
+    # and stripe, then (e) its streamed folds at n = 1024 in both schemes
+    shutil.rmtree(store, ignore_errors=True)
+    try:
+        store_io(store)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    stripe_butterfly(dev, PorlaConfig().stream_stripe_blocks)
+    ooc = {}
+    for key, scheme, n, updates, after, kw in (
+            ("d", "ipa", OOC_N, OOC_UPDATES, (), {}),
+            ("e ipa", "ipa", N_BLOCKS, OOC_E_UPDATES, (32,), OOC_E),
+            ("e kzg", "kzg", N_BLOCKS, OOC_E_UPDATES, (32,), OOC_E)):
+        shutil.rmtree(store, ignore_errors=True)
+        trace.reset()
+        trace.enable()
+        try:
+            ooc[key] = run_ooc(dev, store, scheme, n, updates, after, **kw)
+        finally:
+            trace.enable(False)
+            shutil.rmtree(store, ignore_errors=True)
+        emit({"phase": f"ooc {key}", "launches": ooc[key][1]})
+        for line in trace.report().splitlines():
+            if "count" not in line and "gauge" not in line and (
+                    key == "d" or "stream." in line or "crebuild" in line):
+                print("trace ooc", key, line, flush=True)
+    # K3 and K4 at (d)'s widest launches: the CRebuild's MAC stages (2
+    # planes x n/2 lanes) and the finalize pass's alignment commitments (a
+    # stripe of blocks x 128 lanes)
+    ooc_shapes = ooc["d"][2]
+    k3["ooc"] = check_k3(dev, rng, ops, B=max(ooc_shapes["k3"]))
+    emit(dict(check="point_butterfly ooc", **{
+        k: v for k, v in k3["ooc"].items() if k != "name"}))
+    widest = max(sh for sh in ooc_shapes["k4"] if sh[1])
+    k4["ooc"] = check_k4(dev, rng, ops, (("ooc_commit", *widest),))[0]
+    emit(dict(check="fixed_base ooc", **{
+        k: v for k, v in k4["ooc"].items() if k != "name"}))
+    # K2, K4 and group_sum at every other shape the out-of-core runs
+    # launched that the checks above did not hold, on each run's curve:
+    # (d)'s audit MSM (its samples padded to 2048 slots), its CRebuild's
+    # MAC-plane scaling (2^14 GLV lanes) and (e)'s alignment commits over
+    # stripes of 8 blocks are shapes of no cached path
+    k2_by = {r["name"]: r for r in k2}
+    for scheme, cops, krows, fb_checked in (
+            ("ipa", ops, {**k2_by, "fixed_base": k4, "group_sum": gs},
+             FB_SHAPES), ("kzg", bn254(), bn, KZG_FB_SHAPES)):
+        seen = {name: set() for name in ("k2", "k4", "group_sum")}
+        for key, run in ooc.items():
+            if scheme == ("kzg" if "kzg" in key else "ipa"):
+                for name in seen:
+                    seen[name].update(run[2][name])
+        new_k2 = sorted(seen["k2"] - set(K2_SHAPES))
+        new_k4 = sorted(seen["k4"] - {sh[1:] for sh in fb_checked}
+                        - {widest})
+        new_gs = sorted(seen["group_sum"] - set(GS_SHAPES))
+        emit({"check": f"ooc shapes {scheme}", "k2": new_k2, "k4": new_k4,
+              "group_sum": new_gs})
+        checked = []
+        if new_k2:
+            for row in check_k2(dev, rng, cops, new_k2):
+                checked.append((row["name"], row, k2_shapes([row])))
+        if new_k4:
+            k4_rows = check_k4(
+                dev, rng, cops, [(f"ooc_{B}x{nout}", B, nout, ng, nbits)
+                                 for B, nout, ng, nbits in new_k4],
+                rand_points(rng, cops.curve, max(sh[2] for sh in new_k4)))
+            for row in k4_rows:
+                emit(dict(check=f"fixed_base {scheme} ooc",
+                          **{k: v for k, v in row.items() if k != "name"}))
+                checked.append(("fixed_base", row, k4_shapes([row])))
+        if new_gs:
+            row = check_group_sum(dev, rng, cops, new_gs,
+                                  krows["group_sum"]["add_ms"], max(new_gs))
+            checked.append(("group_sum", row, row["shapes"]))
+        for name, row, shapes in checked:
+            into = krows[name]
+            into["max_abs_err"] = max(into["max_abs_err"], row["max_abs_err"])
+            into.setdefault("ooc_shapes", {}).update(shapes)
+
     # a row's ms, plain_ms and bound are at its secp256k1 shape (the IPA
     # path's); its BN254 numbers (the KZG path's) are under "bn254"
     rows = []
@@ -1527,11 +1915,17 @@ def main() -> int:
                 "kzg " + rec["phase"]
             per_phase.setdefault(key, []).append(rec["launches"][name])
         per_phase["run_msm"] = [msm_total[name]]
+        for log, *_ in ooc.values():
+            for rec in log.records:
+                per_phase.setdefault(f"{rec['path']} {rec['scheme']} "
+                                     f"{rec['phase']}", []).append(
+                    rec["launches"][name])
         b = bn.get(name)
         rows.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces,
-            "launches": total[name] + kzg_total[name] + msm_total[name],
+            "launches": total[name] + kzg_total[name] + msm_total[name]
+            + sum(run[1][name] for run in ooc.values()),
             "max_abs_err": max(r["max_abs_err"],
                                b["max_abs_err"] if b else 0),
             "ms": r["ms"],
@@ -1539,11 +1933,13 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "shape": r["shape"],
             "launches_per_phase": per_phase,
-            **{k: r[k] for k in ("shapes", "update_fold", "depth_ms",
-                                 "add_ms", "nb") if k in r},
+            **{k: r[k] for k in ("shapes", "update_fold", "ooc",
+                                 "ooc_shapes", "depth_ms", "add_ms", "nb")
+               if k in r},
             **({"bn254": {k: b[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err", "shapes", "lane", "depth_ms", "add_ms")
+                "max_abs_err", "shapes", "ooc_shapes", "lane", "depth_ms",
+                "add_ms")
                 if k in b}} if b else {}),
         })
     emit({"kernels": rows})

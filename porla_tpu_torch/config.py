@@ -49,10 +49,12 @@ class PorlaConfig:
     tau_key: bytes = TAU_KEY
     server_port: int = SERVER_PORT
     storage_dir: str = "porla_store"
-    # out-of-core tier: blocks per streaming stripe (the RAM/HBM working
-    # set of the streamed CRebuild/mix, ~16 KB per block per side; the
-    # TPU-native reshaping of the reference's per-butterfly 512-byte file
-    # RMW in CRebuild_No_Cached / disk mix, Server.hpp:1835-2255, 954-1207)
+    # out-of-core tier (protocol/stream.py): blocks a streamed pass holds on
+    # the device at once, 8 KiB of staging bytes each: a stripe in the
+    # staging, mix and final passes, two in a pass of butterfly stages (a
+    # stage's pairs). The reference streams each butterfly through 512-byte
+    # file read-modify-writes instead (CRebuild_No_Cached and the disk mix,
+    # Server.hpp:1835-2255, 954-1207).
     stream_stripe_blocks: int = 4096
     # multi-chip: route ALL sharded audit MSMs through the perf-grade
     # per-shard Pippenger kernel (parallel/sharded.py) even below its

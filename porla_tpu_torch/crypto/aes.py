@@ -11,10 +11,11 @@ blocks makeBlock(0, counter) — i.e. plaintext bytes [counter:u64 LE | 0u64].
 Key = seed XOR makeBlock(0, id). Used by BOTH parties to expand the 16-byte
 audit seed into challenge integers, so it must be byte-compatible.
 
-The block cipher is a self-contained FIPS-197 AES-128 (key schedule plus
-ECB encryption) vectorized over blocks with numpy, so the port needs no
-third-party crypto package. A protocol cycle encrypts a few thousand
-16-byte blocks, which this handles in milliseconds.
+Both run on the port's native runtime (`runtime/lib.py`: AES-NI on
+x86-64), so the port needs no third-party crypto package. Its plain
+version, `ecb_encrypt_plain`, is a self-contained FIPS-197 AES-128 (key
+schedule plus ECB encryption) vectorized over blocks with numpy; only the
+tests call it, to hold the native one against it.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+from porla_tpu_torch.runtime import lib as rt
 
 
 def _make_sbox() -> np.ndarray:
@@ -83,8 +86,9 @@ def _mix_columns(s: np.ndarray) -> np.ndarray:
     return out.reshape(-1, 16)
 
 
-def _ecb_encrypt(key: bytes, plaintext: bytes) -> bytes:
-    """AES-128-ECB over a whole number of 16-byte blocks."""
+def ecb_encrypt_plain(key: bytes, plaintext: bytes) -> bytes:
+    """AES-128-ECB over a whole number of 16-byte blocks in numpy: the
+    plain version of `rt.aes128_ecb`."""
     assert len(plaintext) % 16 == 0
     rk = _expand_key(key)
     s = np.frombuffer(plaintext, np.uint8).reshape(-1, 16) ^ rk[0]
@@ -102,8 +106,8 @@ class MacPrf:
         self.key = key
 
     def prf_block(self, level: int, index: int, write_step: int) -> bytes:
-        pt = struct.pack("<iiq", level, index, write_step)
-        return _ecb_encrypt(self.key, pt)
+        return rt.aes128_ecb(self.key, struct.pack("<iiq", level, index,
+                                                write_step))
 
     def prf_scalar_ipa(self, level: int, index: int, write_step: int) -> int:
         """128-bit scalar r (secp256k1_scalar with d[0],d[1] from the
@@ -115,7 +119,7 @@ class MacPrf:
         pt = b"".join(struct.pack("<iiq", l, i, w) for (l, i, w) in records)
         if not pt:
             return []
-        ct = _ecb_encrypt(self.key, pt)
+        ct = rt.aes128_ecb(self.key, pt)
         return [int.from_bytes(ct[k:k + 16], "little") for k in range(0, len(ct), 16)]
 
     def prf_scalars_kzg(self, records, r_modulus: int) -> list[int]:
@@ -123,7 +127,7 @@ class MacPrf:
         pt = b"".join(struct.pack("<iiq", l, i, w) for (l, i, w) in records)
         if not pt:
             return []
-        ct = _ecb_encrypt(self.key, pt)
+        ct = rt.aes128_ecb(self.key, pt)
         return [int.from_bytes(ct[k:k + 16], "big") % r_modulus
                 for k in range(0, len(ct), 16)]
 
@@ -147,10 +151,9 @@ class Prg:
         self.counter = 0
 
     def random_block(self, nblocks: int) -> bytes:
-        pts = b"".join(struct.pack("<QQ", self.counter + j, 0)
-                       for j in range(nblocks))
+        out = rt.prg_expand(self.key, self.counter, nblocks)
         self.counter += nblocks
-        return _ecb_encrypt(self.key, pts)
+        return out
 
     def random_data(self, nbytes: int) -> bytes:
         full = nbytes // 16

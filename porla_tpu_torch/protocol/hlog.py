@@ -10,7 +10,10 @@ complements, Client.hpp:921-1038).
 Planes: the server folds data (CRT lanes), MAC commitments and MAC
 alignments; the client folds complement points only. One `fold_to_level`
 routine serves both — the point planes of X and Y share twiddles and go
-through one K3 launch per mix step. All planes stay on their device.
+through one K3 launch per mix step. All planes stay on their device. A
+plane without data (the client's, or the point planes of a level whose
+data the server streams through files, protocol/stream.py) folds its
+points alone.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ class Level:
     x: Planes
     y: Planes
     empty: bool = True
+    file_backed: bool = False  # data planes in H_X/H_Y files (stream.py)
 
 
 def mix_planes(ctx: NttContext, lower_x: Planes, lower_y: Planes,
@@ -94,7 +98,13 @@ def fold_to_level(ctx: NttContext, levels: list[Level], target: int,
                                 1 << i)
     levels[target].x, levels[target].y = st_x, st_y
     levels[target].empty = False
-    for i in range(target):
-        levels[i].x = Planes()
-        levels[i].y = Planes()
-        levels[i].empty = True
+    levels[target].file_backed = False
+    clear_below(levels, target)
+
+
+def clear_below(levels: list[Level], target: int) -> None:
+    """Mark levels < target empty (their content folded upward)."""
+    for lv in levels[:target]:
+        lv.x, lv.y = Planes(), Planes()
+        lv.empty = True
+        lv.file_backed = False

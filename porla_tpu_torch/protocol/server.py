@@ -12,11 +12,15 @@ for KZG the 192-byte opening and two 96-byte points (Server.hpp:898-916).
 The bytes are those of the reference package's server, so either package's
 client can talk to either server.
 
-Both schemes run on one device with the cached (all in memory) CRebuild,
-and a ready server checkpoints to the reference package's
-`checkpoint.npz` + `checkpoint.json` layout, so either package resumes the
-other's checkpoint. The multi-device mesh paths and the out-of-core tier
-raise NotImplementedError.
+Both schemes run on one device. Levels up to `config.top_caching_level`
+are held in memory; the data planes of the levels above it live in the
+reference's H_X/H_Y files, written by the streamed CRebuild and fold of
+protocol/stream.py (CRebuild_No_Cached and the disk `mix`), and audits read
+their samples back from those files. A ready server checkpoints to the
+reference package's `checkpoint.npz` + `checkpoint.json` layout (a
+file-backed level's data stays in its files), so either package resumes
+the other's checkpoint. The multi-device mesh paths raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from porla_tpu_torch.fields import limbs
 from porla_tpu_torch.golden import ecc
 from porla_tpu_torch.ntt import engine
 from porla_tpu_torch.ntt.engine import CrtArray, NttContext
-from porla_tpu_torch.protocol import auditing, compute, hlog, points_io
+from porla_tpu_torch.protocol import auditing, compute, hlog, points_io, stream
 from porla_tpu_torch.protocol.hlog import Level, Planes
 from porla_tpu_torch.storage.store import BlockStore
 from porla_tpu_torch.utils import trace
@@ -152,11 +156,13 @@ class PorlaServer:
 
     def _crebuild(self) -> None:
         """CRebuild (Server.hpp:1479-1485): rebuild level C from U, cached
-        (all in memory) while the level fits the caching budget."""
+        (all in memory) while the level fits the caching budget, streamed
+        through files otherwise (CRebuild_No_Cached)."""
         with trace.span("server.crebuild", n=self.num_blocks):
             if self.height - 1 > self.config.top_caching_level:
-                raise _not_ported("the out-of-core (streamed) CRebuild")
-            self._crebuild_impl()
+                self._crebuild_streaming()
+            else:
+                self._crebuild_impl()
 
     def _crebuild_impl(self) -> None:
         n = self.num_blocks
@@ -184,10 +190,42 @@ class PorlaServer:
         top.y = Planes(data=dy, points={
             "c": cy, "a": hlog.infinity_points(n, self.ops, self.device)})
         top.empty = False
-        for i in range(self.height - 1):
-            self.levels[i].x = Planes()
-            self.levels[i].y = Planes()
-            self.levels[i].empty = True
+        top.file_backed = False
+        hlog.clear_below(self.levels, self.height - 1)
+
+    def _crebuild_streaming(self) -> None:
+        """CRebuild_No_Cached (Server.hpp:1835-2255): rebuild level C from
+        U with the data planes streamed through staging files, at most a
+        stripe in memory, into the top level's H_X/H_Y files. The MAC planes
+        stay on the device, as the reference's stay in memory
+        (Server.hpp:221-241): the same K2 scale and K3 stages as the cached
+        path."""
+        n, ctx, dev = self.num_blocks, self.ctx, self.device
+        top = self.height - 1
+        S = self.config.stream_stripe_blocks
+        wt = ctx.wt_scalar(self.write_step)
+        tag_x, tag_y = "crx", "cry"
+
+        stream.stage_u_to_staging(self.store, ctx, wt, n, tag_x, tag_y, S, dev)
+        for first, last in stream.stage_passes(n, S):
+            for tag in (tag_x, tag_y):
+                stream.stream_stages(self.store, ctx, tag, n, first, last, S,
+                                     dev)
+
+        cx = self.mac_u
+        cy = compute.point_scale(self.mac_u, wt.std, ops=self.ops)
+        for s in range(1, self.height):
+            with trace.span("server.crebuild.mac_stage", s=s):
+                cx, cy = compute.point_stage(ctx, s, [cx, cy], ops=self.ops)
+
+        ax = stream.finalize_staged_level(self, tag_x, True, top, n, S)
+        ay = stream.finalize_staged_level(self, tag_y, False, top, n, S)
+        lv = self.levels[top]
+        lv.x = Planes(points={"c": cx, "a": ax})
+        lv.y = Planes(points={"c": cy, "a": ay})
+        lv.empty = False
+        lv.file_backed = True
+        hlog.clear_below(self.levels, top)
 
     # --------------------------------------------------------------- update
 
@@ -247,9 +285,77 @@ class PorlaServer:
             while not self.levels[level].empty:
                 level += 1
             if level > self.config.top_caching_level:
-                raise _not_ported("the out-of-core (streamed) fold")
-            hlog.fold_to_level(ctx, self.levels, level, slot_x, slot_y)
+                self._fold_streamed(level, slot_x, slot_y)
+            else:
+                hlog.fold_to_level(ctx, self.levels, level, slot_x, slot_y)
             return level
+
+    def _fold_streamed(self, target: int, slot_x: Planes,
+                       slot_y: Planes) -> None:
+        """Fold levels 0..target-1 and the incoming slot into the
+        file-backed level `target` (the reference's disk `mix`,
+        Server.hpp:954-1207). The point planes fold on the device as in
+        `hlog.fold_to_level`; the data planes stay in memory while a mix's
+        output fits the caching budget, then go through staging files, a
+        stripe at a time, the two tags fx0/fx1 in turn (a consumed upper's
+        files are deleted). A mix's lower is a level in memory or a
+        file-backed level's codeword files; its upper is the slot, or the
+        previous mix's output in memory or in staging."""
+        ctx, store, dev = self.ctx, self.store, self.device
+        S = self.config.stream_stripe_blocks
+        ram_limit = 1 << self.config.top_caching_level
+
+        def points(p: Planes) -> Planes:
+            return Planes(points=p.points)
+
+        lv0 = self.levels[0]
+        st_px, st_py = hlog.mix_planes(ctx, points(lv0.x), points(lv0.y),
+                                       points(slot_x), points(slot_y), 1)
+        # a data plane: CrtArray (memory) or a staging tag
+        dx, dy = slot_x.data, slot_y.data
+        cycle = 0
+        for i in range(1, target + 1):
+            length = 1 << (i - 1)            # this mix's lower/upper size
+            lv = self.levels[i - 1]
+            if i < target:
+                nxt = self.levels[i]
+                st_px, st_py = hlog.mix_planes(ctx, points(nxt.x),
+                                               points(nxt.y), st_px, st_py,
+                                               1 << i)
+            # the point mix above took level i as its lower; the data mix
+            # below takes level i-1 as the lower of the length-sized step
+            if 2 * length <= ram_limit:
+                tw = ctx.twiddles(length)
+                hix, lox = compute.data_butterfly(ctx.mod_q, lv.x.data, dx, tw)
+                hiy, loy = compute.data_butterfly(ctx.mod_q, lv.y.data, dy, tw)
+                dx, dy = hlog.concat_crt(hix, lox), hlog.concat_crt(hiy, loy)
+                continue
+            cycle ^= 1
+            outs = (f"fx{cycle}", f"fy{cycle}")
+            for is_x, d, planes, out in ((True, dx, lv.x, outs[0]),
+                                         (False, dy, lv.y, outs[1])):
+                if planes.data is not None:
+                    lower = stream.ram_reader(planes.data)
+                else:
+                    lower = stream.level_reader(store, self.mod_q, is_x,
+                                                i - 1, dev)
+                upper = stream.ram_reader(d) if isinstance(d, CrtArray) \
+                    else stream.staged_reader(store, d, dev)
+                stream.stream_mix(store, ctx, lower, upper, out, length, S)
+                if not isinstance(d, CrtArray):
+                    store.delete_staged(d, length)
+            dx, dy = outs
+
+        n_out = 1 << target
+        ax = stream.finalize_staged_level(self, dx, True, target, n_out, S)
+        ay = stream.finalize_staged_level(self, dy, False, target, n_out, S)
+        lvt = self.levels[target]
+        st_px.points["a"] = self.ops.add(st_px.points["a"], ax)
+        st_py.points["a"] = self.ops.add(st_py.points["a"], ay)
+        lvt.x, lvt.y = st_px, st_py
+        lvt.empty = False
+        lvt.file_backed = True
+        hlog.clear_below(self.levels, target)
 
     def _align(self, data: CrtArray, acc: JacPoint):
         """align_MAC (Server.hpp:478-562): acc += commit((A mod p) - A);
@@ -275,7 +381,10 @@ class PorlaServer:
 
     def _gather(self, plan):
         """Audited rows in sample order: data lanes (S, C, 16) and the
-        MAC / alignment points (S,), one index_select per (level, side)."""
+        MAC / alignment points (S,), one index_select per (level, side);
+        a file-backed level's rows come from one batched read of its
+        codeword files (the reference's threaded audit reads,
+        Server.hpp:742-776), the q lane recomputed from the p lane."""
         groups: dict = {}
         for si, s in enumerate(plan.samples):
             groups.setdefault((s.level, s.is_x), []).append((si, s.index))
@@ -283,12 +392,19 @@ class PorlaServer:
         for (level, is_x), items in groups.items():
             lv = self.levels[level]
             planes = lv.x if is_x else lv.y
-            assert planes.data is not None, (
-                f"audited level {level} empty (write_step {self.write_step})")
-            rows = torch.tensor([ix for _, ix in items], device=self.device)
+            if lv.empty or (planes.data is None and not lv.file_backed):
+                raise RuntimeError(f"audited level {level} is empty "
+                                   f"(write_step {self.write_step})")
+            ixs = [ix for _, ix in items]
+            rows = torch.tensor(ixs, device=self.device)
             order += [si for si, _ in items]
-            dp.append(planes.data.p.index_select(0, rows))
-            dq.append(planes.data.q.index_select(0, rows))
+            if planes.data is None:
+                p = self.store.read_codes_256(is_x, level, ixs, self.device)
+                dp.append(p)
+                dq.append(engine.q_lane_from_p(p, self.mod_q))
+            else:
+                dp.append(planes.data.p.index_select(0, rows))
+                dq.append(planes.data.q.index_select(0, rows))
             pc.append(JacPoint(*(c.index_select(0, rows)
                                  for c in planes.points["c"])))
             pa.append(JacPoint(*(c.index_select(0, rows)
@@ -380,7 +496,8 @@ class PorlaServer:
 
     def save_checkpoint(self) -> str:
         """Persist the server state (write counter, MAC plane, the levels'
-        planes and, for KZG, the SRS) beside the block files as
+        planes and, for KZG, the SRS; a file-backed level's data stays in
+        its H_X/H_Y files) beside the block files as
         `checkpoint.npz` + `checkpoint.json`, the reference package's layout
         key for key (porla_tpu/protocol/server.py:164-206): host uint32
         (…, 16) limbs, so either package resumes the other's checkpoint.
@@ -393,7 +510,8 @@ class PorlaServer:
                 "write_step": self.write_step,
                 "levels": []}
         for li, lv in enumerate(self.levels):
-            lm = {"empty": lv.empty, "file_backed": False, "sides": {}}
+            lm = {"empty": lv.empty, "file_backed": lv.file_backed,
+                  "sides": {}}
             for side, planes in (("x", lv.x), ("y", lv.y)):
                 lm["sides"][side] = {"has_data": planes.data is not None,
                                      "points": planes.point_names()}
@@ -431,9 +549,6 @@ class PorlaServer:
 
             levels = []
             for li, lm in enumerate(meta["levels"]):
-                if lm["file_backed"]:
-                    raise _not_ported("restoring a file-backed (out-of-core) "
-                                      "level")
                 sides = {}
                 for side in ("x", "y"):
                     pm = lm["sides"][side]
@@ -442,7 +557,8 @@ class PorlaServer:
                         "data": (data[key + "dp"], data[key + "dq"])
                         if pm["has_data"] else None,
                         "points": {nm: pt(key + nm) for nm in pm["points"]}}
-                levels.append({"empty": lm["empty"], **sides})
+                levels.append({"empty": lm["empty"],
+                               "file_backed": lm["file_backed"], **sides})
             state = {"num_blocks": meta["num_blocks"],
                      "write_step": meta["write_step"],
                      "mac_u": pt("mac_u_"), "levels": levels}
@@ -458,16 +574,15 @@ def from_jax_state(src, config: PorlaConfig, device="cuda") -> PorlaServer:
     server of the reference package (porla_tpu.protocol.server.PorlaServer)
     or any object with the same attributes and numpy-convertible arrays:
     num_blocks, write_step, mac_u (x, y, z) and levels[i] with .empty and
-    .x/.y planes (.data CrtArray or None, .points name -> JacPoint). The
-    block files are shared through config.storage_dir. A KZG server's SRS
-    (an object with `to_bytes()`) carries over too."""
+    .x/.y planes (.data CrtArray or None, .points name -> JacPoint) and
+    .file_backed. The block and codeword files are shared through
+    config.storage_dir: a file-backed level's data is read from them. A KZG
+    server's SRS (an object with `to_bytes()`) carries over too."""
     def pt(p):
         return tuple(np.asarray(c) for c in p)
 
     levels = []
     for lv in src.levels:
-        if getattr(lv, "file_backed", False):
-            raise _not_ported("carrying over a file-backed (out-of-core) level")
         sides = {}
         for side in ("x", "y"):
             planes = getattr(lv, side)
@@ -475,7 +590,9 @@ def from_jax_state(src, config: PorlaConfig, device="cuda") -> PorlaServer:
                 "data": None if planes.data is None else
                 (np.asarray(planes.data.p), np.asarray(planes.data.q)),
                 "points": {k: pt(v) for k, v in planes.points.items()}}
-        levels.append({"empty": lv.empty, **sides})
+        levels.append({"empty": lv.empty,
+                       "file_backed": getattr(lv, "file_backed", False),
+                       **sides})
     state = {"num_blocks": src.num_blocks, "write_step": src.write_step,
              "mac_u": pt(src.mac_u), "levels": levels}
     if config.scheme == "kzg":
@@ -486,9 +603,10 @@ def from_jax_state(src, config: PorlaConfig, device="cuda") -> PorlaServer:
 def load_state(state: dict, config: PorlaConfig, device="cuda") -> PorlaServer:
     """A ready server on `device` from a log state of host numpy arrays in
     the reference package's layout: uint32 (…, 16) limbs; num_blocks,
-    write_step, mac_u (x, y, z) and levels of {"empty", "x", "y"}, each
-    side {"data": (p, q) limbs or None, "points": name -> (x, y, z)}; and
-    for KZG "srs", the SRS wire bytes."""
+    write_step, mac_u (x, y, z) and levels of {"empty", "file_backed", "x",
+    "y"}, each side {"data": (p, q) limbs or None, "points": name -> (x, y,
+    z)}; and for KZG "srs", the SRS wire bytes. A file-backed level has no
+    data plane: its data is in config.storage_dir's H_X/H_Y files."""
     srv = PorlaServer(config, device)
     if config.scheme == "kzg":
         srv.srs = kzg.KzgSrs.from_bytes(state["srs"])
@@ -502,6 +620,7 @@ def load_state(state: dict, config: PorlaConfig, device="cuda") -> PorlaServer:
     srv.mac_u = pt(state["mac_u"])
     for lv, lm in zip(srv.levels, state["levels"]):
         lv.empty = lm["empty"]
+        lv.file_backed = lm.get("file_backed", False)
         for side in ("x", "y"):
             sm = lm[side]
             data = None if sm["data"] is None else CrtArray(

@@ -1,5 +1,6 @@
-"""The port's self-contained AES-128 (porla_tpu_torch.crypto.aes, numpy,
-no third-party crypto package) vs the reference package's
+"""The port's AES-128 (porla_tpu_torch.crypto.aes: the MAC PRF and the PRG
+on the native runtime, and the numpy plain version `ecb_encrypt_plain`; no
+third-party crypto package) vs the reference package's
 `cryptography`-backed porla_tpu.crypto.aes: byte for byte."""
 
 import os
@@ -14,7 +15,7 @@ from porla_tpu_torch.crypto import aes
 def test_fips197_vector():
     key = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
     pt = bytes.fromhex("00112233445566778899aabbccddeeff")
-    assert aes._ecb_encrypt(key, pt).hex() == "69c4e0d86a7b0430d8cdb78070b4c55a"
+    assert aes.ecb_encrypt_plain(key, pt).hex() == "69c4e0d86a7b0430d8cdb78070b4c55a"
 
 
 @pytest.mark.parametrize("nblocks", [1, 7, 256])
@@ -23,7 +24,7 @@ def test_ecb_matches_reference(nblocks):
     for _ in range(5):
         key = rng.randbytes(16)
         pt = rng.randbytes(16 * nblocks)
-        assert aes._ecb_encrypt(key, pt) == ref._ecb_encrypt(key, pt)
+        assert aes.ecb_encrypt_plain(key, pt) == ref._ecb_encrypt(key, pt)
 
 
 def test_mac_prf_matches_reference():
