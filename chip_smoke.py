@@ -64,6 +64,15 @@
    each run's curve). Beside the runs: the native runtime's file IO at
    (d)'s staging shape and the card's time for the plain butterfly over
    one stripe.
+6. Runs ICC erasure recovery (`run_icc`, path (f)): a level of m = 2^15
+   blocks of 128 chunks in the hardened context at n = 2^16, encoded on K1
+   in the p lane and secp256k1's n lane, recovered from 128 erased columns
+   (the `icc_recover` tool's pattern, then all from the X half) bit-exact
+   in each lane and by CRT to the 256-bit chunk values; the reference mode
+   on an epoch-CRebuild level at m = 1024 (a recoverable pattern, and an
+   erased X/Y pair that must raise); BN254's r lane at m = 1024. Every fold
+   must launch its K1 passes; K1 is then held against its plain version at
+   the widest fold shape, (2^15, e + C, 16), in both lanes.
 Any failed phase raises, so the script exits nonzero and prints no result.
 It exits nonzero when torch finds no CUDA device or the port's package is
 not beside it.
@@ -76,7 +85,6 @@ import os
 import random
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 
@@ -106,15 +114,6 @@ FE_BYTES = 32                  # one 256-bit field element, packed
 # meets that case, which these inputs' random lanes do not.
 DBL, ADD, MADD = 7, 16, 11
 TABLE16 = 7 * DBL + 7 * ADD    # 2P..15P of a 16-entry window table
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def emit(obj) -> None:
@@ -1730,6 +1729,237 @@ def run_ooc(dev, store_dir, scheme, n, updates, audit_after, **cfg_kw):
     return log, total, shapes, memory
 
 
+# --- phase 6: ICC erasure recovery ------------------------------------------
+
+ICC_N = 1 << 16       # (f1): the reference's record, a level of m = 2^15
+ICC_ERASE = 128       # erased codeword columns of the level's 2m
+ICC_CHUNKS = 128      # a full block
+ICC_SMALL_N = 1 << 11  # (f2), (f3): a level of m = 1024 blocks
+
+
+def crt_combine(rp, rq, mod_q):
+    """(..., 32) limbs of the value below p * q whose residues are rp mod p
+    and rq mod q: rp + p * ((rq - rp) * p^-1 mod q), exact, on the card,
+    over column chunks."""
+    from porla_tpu_torch.fields import limbs as L
+    from porla_tpu_torch.fields import mont
+    from porla_tpu_torch.ntt import engine, icc_device
+    P = engine.MOD_P
+    pinv = L.ints_to_tensor([mod_q.to_mont_int(pow(P.n, -1, mod_q.n))],
+                            rp.device)[0]
+    out = torch.empty(rp.shape[:-1] + (2 * L.NLIMBS,), dtype=rp.dtype,
+                      device=rp.device)
+    step = max(1, icc_device.CHUNK_ELEMS // rp.shape[0])
+    for c in range(0, rp.shape[1], step):
+        a, b = rp[:, c:c + step], rq[:, c:c + step]
+        k = mont.mont_mul(mont.sub_mod(b, engine.q_lane_from_p(a, mod_q),
+                                       mod_q), pinv, mod_q)
+        cols = torch.nn.functional.pad(
+            mont._cols(k, P.const("limbs", k.device).expand_as(k)), (0, 1))
+        cols[..., :L.NLIMBS] += a                 # columns < 2^37
+        out[:, c:c + step] = mont._normalize(cols, 2 * L.NLIMBS, 2)
+    return out
+
+
+def run_icc(dev):
+    """Path (f), ICC erasure recovery (`ntt/icc_device.py`) on the card.
+    (f1) The hardened context at n = 2^16: a level of m = 2^15 blocks of
+    128 chunks (`tools/icc_recover.py`'s data), encoded on K1 in the p lane
+    and in secp256k1's n lane; 128 erased columns in the tool's pattern
+    (random over both halves), then 128 all from the X half (e = 128, the
+    widest solve); each recovery must equal the blocks, and the two lanes'
+    recoveries combined by CRT the original 256-bit chunk values. (f2) The
+    reference (non-hardened) mode on an epoch-CRebuild level (every block
+    written at one step, so Y = wt * X) at m = 1024, through the dict entry
+    point `recover_level_device`: 128 erased X columns whose Y columns
+    survive must recover (the first e + slack rows are singular there, so
+    this takes the retry on all rows); an erased pair (j, m + j) must raise
+    the singular ValueError. (f3) BN254's r lane (the KZG scheme's q lane)
+    at m = 1024. Every fold must launch K1 its planned passes, and the path
+    K1 at all (f5). Then (f4) K1 against its plain version, limb for limb,
+    at the widest fold shape recovery launched, (2^15, e + C, 16), in both
+    lanes, and timed. Prints per lane the encode and recover seconds, the
+    recovery's spans (`icc.*`, each synchronised at its end), its peak
+    device allocation and the card (f6). Returns (launches over the path,
+    K1's row at the fold shape)."""
+    import random
+    import numpy as np
+    from porla_tpu_torch import native
+    from porla_tpu_torch.fields import limbs as L
+    from porla_tpu_torch.ntt import cuda_stage, engine, icc_device
+    from porla_tpu_torch.tools import icc_recover as tool
+    from porla_tpu_torch.utils import trace
+
+    card = native.card_line()
+    folds = []                       # (shape, launches, planned passes)
+    fold_lane = cuda_stage.fold_lane
+
+    def counted(ctx, a, mod, lane):
+        before = native.KERNELS["ntt_stage"].launches
+        out = fold_lane(ctx, a, mod, lane)
+        folds.append((list(a.shape),
+                      native.KERNELS["ntt_stage"].launches - before,
+                      len(cuda_stage.pass_plan(a.shape[0]))))
+        return out
+
+    def encode(ctx, B, wts, mod):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        X, Y = tool.encode_level(ctx, B, wts, mod)
+        torch.cuda.synchronize(dev)
+        return X, Y, time.perf_counter() - t0
+
+    def recover(ctx, wts, X, Y, B, erased, mod):
+        Xe, Ye = tool.erase(X, Y, erased)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        trace.reset()
+        trace.enable()
+        try:
+            t0 = time.perf_counter()
+            got = icc_device.recover_level_tensors(ctx, wts, Xe, Ye, erased,
+                                                   mod)
+            torch.cuda.synchronize(dev)
+            s = time.perf_counter() - t0
+        finally:
+            trace.enable(False)
+        if not torch.equal(got, B):
+            raise AssertionError(f"icc: the level recovered mod {mod} "
+                                 f"differs from its blocks")
+        m = X.shape[0]
+        return got, {
+            "m": m, "chunks": X.shape[1], "erased": len(erased),
+            "x_erased": sum(j < m for j in erased), "recover_s": s,
+            "spans_s": {k: v["total_s"] for k, v in trace.summary().items()
+                        if k.startswith("icc.")},
+            "cuda_max_allocated_mib":
+                torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+            "bitexact": True, "card": card}
+
+    cuda_stage.fold_lane = counted
+    try:
+        native.reset_launches()
+        # (f1)
+        ctx = engine.NttContext(ICC_N, "ipa", hardened=True)
+        m = ICC_N // 2
+        wts = [3 + i for i in range(m)]
+        raw = tool.level_data(m, ICC_CHUNKS, dev)
+        bench_rng = random.Random(17)
+        x_only = set(random.Random(18).sample(range(m), ICC_ERASE))
+        recovered = {}
+        for lane, mod in (("p", ctx.mod_p), ("q", ctx.mod_q)):
+            B = tool.reduce_lane(raw, mod)
+            X, Y, enc_s = encode(ctx, B, wts, mod)
+            for pattern, erased in (
+                    ("tool", set(bench_rng.sample(range(2 * m), ICC_ERASE))),
+                    ("x_only", x_only)):
+                recovered[lane, pattern], rec = recover(ctx, wts, X, Y, B,
+                                                        erased, mod)
+                emit({"icc": "f1", "lane": lane, "modulus": mod.name,
+                      "pattern": pattern, "encode_s": enc_s, **rec})
+            del X, Y, B
+        for pattern in ("tool", "x_only"):
+            v = crt_combine(recovered["p", pattern], recovered["q", pattern],
+                            ctx.mod_q)
+            if not torch.equal(v[..., :L.NLIMBS], raw) or \
+                    v[..., L.NLIMBS:].any():
+                raise AssertionError(f"icc: the CRT of the recovered lanes "
+                                     f"({pattern}) is not the chunk values")
+            emit({"icc": "f1 crt", "pattern": pattern, "values": m
+                  * ICC_CHUNKS, "equal": True})
+        del recovered, raw, v
+
+        # (f2) reference mode, an epoch-CRebuild level, the dict form
+        ctx2 = engine.NttContext(ICC_SMALL_N, "ipa")
+        m2 = ICC_SMALL_N // 2
+        wts2 = [ICC_SMALL_N + 5] * m2
+        B = tool.reduce_lane(tool.level_data(m2, 8, dev), ctx2.mod_p)
+        X, Y, _ = encode(ctx2, B, wts2, ctx2.mod_p)
+        xs, ys = (L.tensor_to_ints(h) for h in (X, Y))
+        cols = {j: (xs if j < m2 else ys)[(j % m2) * 8:(j % m2 + 1) * 8]
+                for j in range(2 * m2)}
+        erased = set(random.Random(19).sample(range(m2), ICC_ERASE))
+        t0 = time.perf_counter()
+        got = icc_device.recover_level_device(
+            ctx2, wts2, {j: v for j, v in cols.items() if j not in erased},
+            device=dev)
+        s2 = time.perf_counter() - t0
+        if sum(got, []) != L.tensor_to_ints(B):
+            raise AssertionError("icc (f2): the epoch level did not recover")
+        try:
+            icc_device.recover_level_device(
+                ctx2, wts2, {j: v for j, v in cols.items()
+                             if j not in (7, m2 + 7)}, device=dev)
+        except ValueError as exc:
+            if "singular" not in str(exc):
+                raise
+        else:
+            raise AssertionError("icc (f2): an erased X/Y pair of an epoch "
+                                 "level did not raise")
+        emit({"icc": "f2", "mode": "reference", "m": m2, "chunks": 8,
+              "x_erased": ICC_ERASE, "recover_s": s2, "recovered": True,
+              "pair_erased": "singular ValueError", "card": card})
+
+        # (f3) BN254's r lane
+        ctx3 = engine.NttContext(ICC_SMALL_N, "kzg", hardened=True)
+        wts3 = [3 + i for i in range(m2)]
+        B = tool.reduce_lane(tool.level_data(m2, ICC_CHUNKS, dev),
+                             ctx3.mod_q)
+        X, Y, enc_s = encode(ctx3, B, wts3, ctx3.mod_q)
+        _, rec = recover(ctx3, wts3, X, Y, B, set(random.Random(17).sample(
+            range(2 * m2), ICC_ERASE)), ctx3.mod_q)
+        emit({"icc": "f3", "lane": "q", "modulus": ctx3.mod_q.name,
+              "encode_s": enc_s, **rec})
+        del X, Y, B
+        total = native.launches()
+    finally:
+        cuda_stage.fold_lane = fold_lane
+
+    # (f5) every fold launched K1 its planned passes
+    bad = [f for f in folds if f[1] != f[2] or not f[1]]
+    if bad or not total["ntt_stage"]:
+        raise AssertionError(f"icc: folds without their K1 passes: {bad}, "
+                             f"{total['ntt_stage']} K1 launches")
+    emit({"icc": "f5", "folds": len(folds), "k1_launches":
+          total["ntt_stage"], "fold_shapes": sorted(
+              {(*f[0], f[1]) for f in folds})})
+
+    # (f4) K1 at the widest fold shape, against the plain stage loop (over
+    # column chunks: the plain products would not fit at once)
+    shape = max((f[0] for f in folds), key=lambda sh: sh[0] * sh[1])
+    rng = np.random.default_rng(SEED + 4)
+    ctx = engine.NttContext(ICC_N, "ipa", hardened=True)
+    mm, width = shape[0], shape[1]
+    rows = []
+    for lane, mod in (("p", ctx.mod_p), ("q", ctx.mod_q)):
+        a = lane_values(rng, mod, mm * width, dev).reshape(shape)
+
+        def plain():
+            return icc_device.map_columns(
+                lambda x: cuda_stage.fold_lane_plain(ctx, x, mod, lane), a)
+        err = limb_err(cuda_stage.fold_lane(ctx, a, mod, lane), plain())
+        if err:
+            raise AssertionError(f"K1 at the fold shape {shape}, lane "
+                                 f"{lane}: max abs err {err}")
+        ms = timed_ms(lambda: cuda_stage.fold_lane(ctx, a, mod, lane), dev,
+                      10)
+        plain_ms = timed_ms(plain, dev, 1)
+        b_ms, b_by = bound((mm.bit_length() - 1) * mm // 2 * width
+                           * OPS_PER_FE_MUL,
+                           2 * mm * width * FE_BYTES + (mm - 1) * FE_BYTES)
+        rows.append(dict(shape=shape, lane=lane, modulus=mod.name,
+                         passes=cuda_stage.pass_plan(mm), ms=ms,
+                         plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
+                         bound_by=b_by))
+        emit({"check": "ntt_stage icc", **rows[-1], "card": card})
+        del a
+    return total, dict(rows[0], lane="p and q (mean)",
+                       ms=statistics.mean(r["ms"] for r in rows),
+                       plain_ms=statistics.mean(r["plain_ms"] for r in rows),
+                       max_abs_err=max(r["max_abs_err"] for r in rows),
+                       launches=total["ntt_stage"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -1746,7 +1976,7 @@ def main() -> int:
     from porla_tpu_torch.runtime import lib as rt
     from porla_tpu_torch.utils import trace
 
-    card = card_line()
+    card = native.card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1903,6 +2133,12 @@ def main() -> int:
             into["max_abs_err"] = max(into["max_abs_err"], row["max_abs_err"])
             into.setdefault("ooc_shapes", {}).update(shapes)
 
+    # (f) ICC erasure recovery: a level of 2^15 blocks, its folds on K1
+    t0 = time.perf_counter()
+    icc_total, k1["icc"] = run_icc(dev)
+    emit({"phase": "icc", "s": time.perf_counter() - t0,
+          "launches": icc_total})
+
     # a row's ms, plain_ms and bound are at its secp256k1 shape (the IPA
     # path's); its BN254 numbers (the KZG path's) are under "bn254"
     rows = []
@@ -1915,6 +2151,7 @@ def main() -> int:
                 "kzg " + rec["phase"]
             per_phase.setdefault(key, []).append(rec["launches"][name])
         per_phase["run_msm"] = [msm_total[name]]
+        per_phase["icc"] = [icc_total[name]]
         for log, *_ in ooc.values():
             for rec in log.records:
                 per_phase.setdefault(f"{rec['path']} {rec['scheme']} "
@@ -1925,7 +2162,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces,
             "launches": total[name] + kzg_total[name] + msm_total[name]
-            + sum(run[1][name] for run in ooc.values()),
+            + sum(run[1][name] for run in ooc.values()) + icc_total[name],
             "max_abs_err": max(r["max_abs_err"],
                                b["max_abs_err"] if b else 0),
             "ms": r["ms"],
@@ -1934,7 +2171,8 @@ def main() -> int:
             "shape": r["shape"],
             "launches_per_phase": per_phase,
             **{k: r[k] for k in ("shapes", "update_fold", "ooc",
-                                 "ooc_shapes", "depth_ms", "add_ms", "nb")
+                                 "ooc_shapes", "icc", "depth_ms", "add_ms",
+                                 "nb")
                if k in r},
             **({"bn254": {k: b[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1943,7 +2181,7 @@ def main() -> int:
                 if k in b}} if b else {}),
         })
     emit({"kernels": rows})
-    print(card_line(), flush=True)
+    print(native.card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

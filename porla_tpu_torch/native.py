@@ -229,6 +229,19 @@ def require(device: torch.device, *tensors: torch.Tensor) -> None:
             raise ValueError("operand must be contiguous")
 
 
+def card_line(index: int = 0) -> str:
+    """The card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them (a card
+    below its maximum power runs slower under load: keep this beside every
+    time measured on it)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[index]
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on. "cuda" is the default of the
     protocol classes; it raises when no card is present instead of falling

@@ -5,9 +5,10 @@ behind `butterfly_stage` / `encode_stages_pallas`). The kernel source is
 `csrc/ntt_stage.cu`: one launch runs a pass of consecutive stages on
 shared memory. `encode_lane` runs a lane's CRebuild stages in the passes of
 `pass_plan` (one launch at n <= 1024); `ntt_stage` is the one-stage call of
-the same kernel. Their plain versions are the plain stage loop
-(`engine.stage`). A CPU tensor goes to the plain version; a CUDA tensor
-launches the kernel or raises.
+the same kernel; `fold_lane` runs the first log2(m) stages over m <= n
+rows (ICC recovery's level fold, `icc_device`). Their plain versions are
+the plain stage loop (`engine.stage`). A CPU tensor goes to the plain
+version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -76,11 +77,7 @@ def ntt_stage(a: torch.Tensor, tw_mont: torch.Tensor, m2: int,
 def encode_lane_plain(ctx: engine.NttContext, a, mod: mont.Modulus,
                       lane: str):
     """The plain version of `encode_lane`: the stage loop."""
-    for s in range(1, ctx.height):
-        m2 = 1 << (s - 1)
-        tw = getattr(ctx.twiddles(m2), "mont_" + lane)
-        a = stage_plain(a, L.to_torch(tw, a.device), m2, mod)
-    return a
+    return fold_lane_plain(ctx, a, mod, lane)
 
 
 def encode_lane(ctx: engine.NttContext, a: torch.Tensor,
@@ -91,13 +88,38 @@ def encode_lane(ctx: engine.NttContext, a: torch.Tensor,
     _check_lane(a)
     if a.shape[0] != ctx.n:
         raise ValueError(f"{a.shape[0]} rows, expected n = {ctx.n}")
+    return fold_lane(ctx, a, mod, lane)
+
+
+def fold_lane_plain(ctx: engine.NttContext, a, mod: mont.Modulus,
+                    lane: str):
+    """The plain version of `fold_lane`: the stage loop over m rows."""
+    m = a.shape[0]
+    for s in range(1, m.bit_length()):
+        m2 = 1 << (s - 1)
+        tw = getattr(ctx.twiddles(m2), "mont_" + lane)
+        a = stage_plain(a, L.to_torch(tw, a.device), m2, mod)
+    return a
+
+
+def fold_lane(ctx: engine.NttContext, a: torch.Tensor, mod: mont.Modulus,
+              lane: str) -> torch.Tensor:
+    """The level fold of ICC recovery: stages s = 1..log2(m) over one (m,
+    C…, 16) lane, m a power of two <= ctx.n (the CRebuild's first log2(m)
+    stages, which `icc.fold_transform` computes). One K1 launch per pass of
+    `pass_plan(m)` on the lane's n-row table (`ctx.stage_table`), whose
+    rows m2 - 1 + j for m2 < m are the same twiddles."""
+    _check_lane(a)
+    m = a.shape[0]
+    if m & (m - 1) or not 1 <= m <= ctx.n:
+        raise ValueError(f"{m} rows: need a power of two <= n = {ctx.n}")
     if a.device.type == "cpu":
-        return encode_lane_plain(ctx, a, mod, lane)
+        return fold_lane_plain(ctx, a, mod, lane)
     _require(a)
     out = torch.empty_like(a)
     src = a
     tw = ctx.stage_table(lane, a.device)
-    for s0, s1 in pass_plan(ctx.n):
+    for s0, s1 in pass_plan(m):
         _launch(src, out, tw, 0, 1 << (s0 - 1), s1 - s0 + 1, mod)
         src = out
     return src
