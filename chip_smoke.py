@@ -73,6 +73,22 @@
    erased X/Y pair that must raise); BN254's r lane at m = 1024. Every fold
    must launch its K1 passes; K1 is then held against its plain version at
    the widest fold shape, (2^15, e + C, 16), in both lanes.
+7. Runs the multi-device paths (path (g)) on logical meshes of the card
+   (several shards on cuda:0: every shard-local kernel and the whole
+   exchange schedule run, no interconnect does): (g1) the cycles of step
+   3, IPA then KZG, with the server on a (2, 2) mesh (`run_mesh_protocol`):
+   every reply equal to the one-device server's (byte for byte; a KZG
+   audit's two Jacobian points as group elements), the corrupted audit
+   refused, the restored server sharded too, and one more audit with
+   force_sharded_pippenger (K5 and K6 a shard); (g2) the distributed NTT
+   at n = 2^14, C = 128, both lanes, on dp = 4, limb for limb
+   `encode_crt`'s, timed beside it, its exchange launch (`pair_stage`)
+   held against its plain version; (g3) the sharded Pippenger MSM at 2^20
+   points on dp = 4 on both curves, each result the golden point, timed
+   beside the one-device MSM; (g4) two processes of
+   `porla_tpu_torch/tools/run_multihost.py` over gloo, two shards each on
+   cuda:0, the IPA epoch at n = 1024, both printing "audit PASSED", with
+   the bytes each moved.
 Any failed phase raises, so the script exits nonzero and prints no result.
 It exits nonzero when torch finds no CUDA device or the port's package is
 not beside it.
@@ -85,6 +101,7 @@ import os
 import random
 import shutil
 import statistics
+import subprocess
 import sys
 import time
 
@@ -1308,20 +1325,35 @@ def check_msm_parts(dev, ops):
 
 # --- phase 3: the protocol --------------------------------------------------
 
+class Recording:
+    """The in-process transport, keeping every (request opcode, reply)."""
+
+    def __init__(self, server, replies):
+        self.server, self.replies = server, replies
+
+    def __call__(self, msg: bytes) -> bytes:
+        reply = self.server.handle(bytes(msg))
+        self.replies.append((bytes(msg[:1]), reply))
+        return reply
+
+
 def run_protocol(dev, store_dir, scheme="ipa", n=N_BLOCKS,
-                 n_updates=N_UPDATES):
+                 n_updates=N_UPDATES, mesh=None):
     """initialize -> audit -> updates -> audit -> corrupted audit, then
     checkpoint -> restore into a new server -> audit -> update -> audit, on
-    `dev`, in `scheme`. Returns (per-phase records, launches over the
-    cycle up to the second audit, the (phase, lanes) of every K3
-    launch)."""
+    `dev`, in `scheme`; with a `mesh`, the server sharded over it (the
+    restored one too), and last an audit with force_sharded_pippenger.
+    Returns (per-phase records, launches over the cycle up to the second
+    audit, the (phase, lanes) of every K3 launch, every (opcode, reply) in
+    order)."""
+    import dataclasses
+
     import numpy as np
     from porla_tpu_torch import native
     from porla_tpu_torch.config import PorlaConfig
     from porla_tpu_torch.protocol.client import AuditError, PorlaClient
     from porla_tpu_torch.protocol import auditing
     from porla_tpu_torch.protocol.server import PorlaServer
-    from porla_tpu_torch.protocol.transport import InProcTransport
     from porla_tpu_torch.curves import cuda_curve as cc
     rng = np.random.default_rng(SEED + 1)
     seed = lambda: rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
@@ -1334,11 +1366,13 @@ def run_protocol(dev, store_dir, scheme="ipa", n=N_BLOCKS,
         if nbits == 256:
             k3_lanes.append((current[0], m0.x.shape[0]))
         return butterfly(ops, m0, m1, scalars, nbits)
-    cfg = PorlaConfig(scheme=scheme, storage_dir=store_dir)
+    cfg = PorlaConfig(scheme=scheme, storage_dir=store_dir, mesh=mesh)
     server = PorlaServer(cfg, device=dev)
-    client = PorlaClient(cfg, InProcTransport(server), data_seed=seed(),
+    replies = []
+    client = PorlaClient(cfg, Recording(server, replies), data_seed=seed(),
                          device=dev)
     phases = []
+    label = scheme if mesh is None else f"mesh {scheme}"
 
     def phase(name, fn):
         before = native.launches()
@@ -1347,7 +1381,7 @@ def run_protocol(dev, store_dir, scheme="ipa", n=N_BLOCKS,
         fn()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        rec = {"phase": name, "scheme": scheme,
+        rec = {"phase": name, "scheme": label,
                "s": time.perf_counter() - t0,
                "launches": {k: v - before[k]
                             for k, v in native.launches().items()}}
@@ -1399,27 +1433,33 @@ def run_protocol(dev, store_dir, scheme="ipa", n=N_BLOCKS,
     # checkpoint and resume: a new server restored on the card from the
     # files takes over, and the client goes on with it
     def restore():
-        client.transport = InProcTransport(PorlaServer.restore(cfg,
-                                                               device=dev))
+        client.transport = Recording(PorlaServer.restore(cfg, device=dev),
+                                     replies)
     phase("checkpoint", server.save_checkpoint)
     phase("restore", restore)
     phase("resume_audit", lambda: client.audit(seed=seed()))
     phase("resume_update", update)
     phase("resume_audit", lambda: client.audit(seed=seed()))
-    return phases, total, k3_lanes
+    if mesh is not None:
+        resumed = client.transport.server
+        resumed.config = dataclasses.replace(cfg,
+                                             force_sharded_pippenger=True)
+        phase("audit_forced_pippenger", lambda: client.audit(seed=seed()))
+    return phases, total, k3_lanes, replies
 
 
-def check_protocol_launches(scheme, phases, total) -> None:
+def check_protocol_launches(scheme, phases, total, init_k1=4) -> None:
     """K1-K4 and group_sum were launched by the cycle, and initialize
-    launched K1 exactly 4 times (two CRT arrays, one K1 pass a lane)."""
+    launched K1 exactly `init_k1` times (two CRT arrays of two lanes, one
+    K1 pass a lane on one device)."""
     missing = [k for k in PROTOCOL_KERNELS if total[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the {scheme} protocol "
                              f"run: {missing}")
-    init_k1 = phases[0]["launches"]["ntt_stage"]
-    if init_k1 != 4:
-        raise AssertionError(f"{scheme} initialize launched K1 {init_k1} "
-                             f"times, not 4")
+    if phases[0]["launches"]["ntt_stage"] != init_k1:
+        raise AssertionError(f"{scheme} initialize launched K1 "
+                             f"{phases[0]['launches']['ntt_stage']} times, "
+                             f"not {init_k1}")
 
 
 PROTOCOL_KERNELS = ("ntt_stage", "scalar_mul_window", "scalar_mul_glv",
@@ -1960,6 +2000,254 @@ def run_icc(dev):
                        launches=total["ntt_stage"])
 
 
+# --- phase 7: the multi-device mesh ------------------------------------------
+# A logical mesh: every shard on the one card, so the exchange schedule and
+# the shard-local kernels run as on a mesh of cards, and no time here is an
+# interconnect's (NVLink or network).
+
+MESH_ENCODE_N = 1 << 14   # the bench's encode size (C = 128, both lanes)
+MESH_DP = 4               # the distributed NTT's and the sharded MSM's dp
+
+
+def mesh_encode_launches(n: int, dp: int) -> int:
+    """K1 launches of one lane's sharded encode: the local passes of every
+    shard, then one launch a shard pair at each exchange stage."""
+    from porla_tpu_torch.ntt import cuda_stage
+    n_loc = n // dp
+    return (dp * len(cuda_stage.pass_plan(n_loc))
+            + (n.bit_length() - n_loc.bit_length()) * dp // 2)
+
+
+def same_reply(ops, kzg: bool, op: bytes, a: bytes, b: bytes) -> bool:
+    """Two servers' replies to one request agree: byte for byte, except the
+    two Jacobian points that end a KZG audit reply, which must be the same
+    group elements."""
+    if a == b:
+        return True
+    if op != b"A" or not kzg or len(a) != len(b):
+        return False
+    from porla_tpu_torch.protocol import points_io
+    pa = points_io.points_from_bytes(a[192:], ops, "cpu")
+    pb = points_io.points_from_bytes(b[192:], ops, "cpu")
+    return a[:192] == b[:192] and ops.to_affine(pa) == ops.to_affine(pb)
+
+
+def run_mesh_protocol(dev, store, runs, card) -> dict:
+    """(g1): path (a)'s IPA cycle and path (b)'s KZG cycle on a logical
+    (2, 2) mesh of `dev`, with the same client seeds: every reply must equal
+    the one-device server's (`same_reply`), the corrupted audit is refused,
+    the restored server is sharded too, and one more audit forces the
+    per-shard Pippenger MSMs. Returns {scheme: (phases, launches)}."""
+    from porla_tpu_torch.curves.instances import bn254, secp256k1
+    from porla_tpu_torch.parallel import sharded
+    from porla_tpu_torch.utils import trace
+    mesh = sharded.make_mesh([dev] * 4)
+    out = {}
+    for scheme, ops in (("ipa", secp256k1()), ("kzg", bn254())):
+        shutil.rmtree(store, ignore_errors=True)
+        trace.reset()
+        trace.enable()
+        try:
+            phases, total, _, replies = run_protocol(dev, store, scheme,
+                                                     mesh=mesh)
+        finally:
+            trace.enable(False)
+            shutil.rmtree(store, ignore_errors=True)
+        for line in trace.report().splitlines():
+            if "count" not in line and "gauge" not in line:
+                print("trace mesh", scheme, line, flush=True)
+        n_loc = N_BLOCKS // mesh.dp
+        init_k1 = 4 * mesh_encode_launches(N_BLOCKS, mesh.dp)
+        check_protocol_launches(f"mesh {scheme}", phases, total, init_k1)
+        one_phases, _, _, one_replies = runs[scheme]
+        if len(replies) != len(one_replies) + 1:
+            raise AssertionError(f"mesh {scheme}: {len(replies)} replies, "
+                                 f"one device {len(one_replies)} + 1")
+        for i, ((op, a), (_, b)) in enumerate(zip(replies, one_replies)):
+            if not same_reply(ops, scheme == "kzg", op, a, b):
+                raise AssertionError(f"mesh {scheme}: reply {i} ({op!r}) "
+                                     f"differs from the one-device server's")
+        forced = phases[-1]["launches"]
+        if forced["pip_bucket"] != 2 * mesh.dp or \
+                forced["bucket_fold"] != 4 * mesh.dp:
+            raise AssertionError(f"mesh {scheme}: the forced audit took "
+                                 f"{forced['pip_bucket']} K5 launches")
+        compare = [{"phase": m["phase"], "s_mesh": m["s"], "s_one": o["s"],
+                    "launches_mesh": {k: v for k, v in m["launches"].items()
+                                      if v},
+                    "launches_one": {k: v for k, v in o["launches"].items()
+                                     if v}}
+                   for m, o in zip(phases, one_phases)]
+        emit({"check": f"mesh {scheme}", "mesh": mesh.shape, "n": N_BLOCKS,
+              "n_loc": n_loc, "replies_equal": len(one_replies),
+              "initialize_k1": init_k1, "phases": compare,
+              "forced_pippenger_audit": {
+                  "s": phases[-1]["s"],
+                  "launches": {k: v for k, v in forced.items() if v}},
+              "card": card})
+        out[scheme] = (phases, total)
+    return out
+
+
+def run_mesh_encode(dev, rng, card) -> dict:
+    """(g2): the distributed NTT at n = 2^14, C = 128, both lanes, on a
+    logical dp = 4 mesh: limb for limb `compute.encode_crt`'s lanes, its K1
+    launches as planned, the card's time beside `encode_lane`'s (and the
+    host's, which the exchange stages' Python adds to), and `pair_stage`
+    held against its plain version at the last exchange's shape."""
+    from porla_tpu_torch import native
+    from porla_tpu_torch.fields import limbs as L
+    from porla_tpu_torch.ntt import cuda_stage, engine
+    from porla_tpu_torch.parallel import sharded
+    n, C = MESH_ENCODE_N, 128
+    ctx = engine.NttContext(n, "ipa")
+    mesh = sharded.make_mesh([dev] * MESH_DP, tp=1)
+    n_loc = n // mesh.dp
+    want_k1 = mesh_encode_launches(n, mesh.dp)
+    rows, launches = [], 0
+    for lane, mod in (("p", ctx.mod_p), ("q", ctx.mod_q)):
+        a = lane_values(rng, mod, n * C, dev).reshape(n, C, L.NLIMBS)
+        enc = sharded.sharded_encode_fn(ctx, mesh, mod)
+        before = native.launches()["ntt_stage"]
+        shards = enc(a)
+        torch.cuda.synchronize(dev)
+        k1 = native.launches()["ntt_stage"] - before
+        launches += k1
+        if k1 != want_k1:
+            raise AssertionError(f"sharded encode lane {lane}: {k1} K1 "
+                                 f"launches, planned {want_k1}")
+        one = cuda_stage.encode_lane(ctx, a, mod, lane)
+        err = limb_err(sharded.gather(mesh, shards, dev), one)
+        if err:
+            raise AssertionError(f"sharded encode lane {lane}: max abs err "
+                                 f"{err} against encode_crt's lane")
+        u, t = a[:n_loc], a[n // 2:n // 2 + n_loc]
+        m2 = n // 2
+        pair = cuda_stage.pair_stage(ctx, u, t, mod, lane, m2, 0)
+        err = max(err, limb_err(torch.cat(pair), cuda_stage.pair_stage_plain(
+            ctx, torch.cat([u, t]), mod, lane, m2, 0)))
+        if err:
+            raise AssertionError(f"pair_stage lane {lane}: max abs err {err} "
+                                 f"against its plain version")
+        ms = timed_ms(lambda: enc(a), dev, 10)
+        one_ms = timed_ms(lambda: cuda_stage.encode_lane(ctx, a, mod, lane),
+                          dev, 10)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            enc(a)
+            torch.cuda.synchronize(dev)
+            host.append((time.perf_counter() - t0) * 1e3)
+        rows.append({"lane": lane, "ms": ms, "encode_crt_lane_ms": one_ms,
+                     "host_ms": statistics.median(host), "k1_launches": k1,
+                     "max_abs_err": err})
+        del a, one, shards
+    rec = {"check": "mesh encode", "n": n, "chunks": C, "mesh": mesh.shape,
+           "n_loc": n_loc, "exchange_stages": n.bit_length()
+           - n_loc.bit_length(), "lanes": rows, "card": card}
+    emit(rec)
+    return {"launches": launches, "max_abs_err": max(r["max_abs_err"]
+                                                     for r in rows)}
+
+
+def run_mesh_msm(dev, card) -> dict:
+    """(g3): `sharded_pippenger_msm_fn` at 2^20 points on a logical dp = 4
+    mesh (n_local = 2^18), secp256k1 and BN254, on `run_msm`'s operands:
+    every result the golden point; best of 3 (host clock, the result on the
+    host) beside the one-device `kernels.msm` on the same operands."""
+    from porla_tpu_torch import native
+    from porla_tpu_torch.curves import kernels
+    from porla_tpu_torch.curves.instances import bn254, secp256k1
+    from porla_tpu_torch.parallel import sharded
+    mesh = sharded.make_mesh([dev] * MESH_DP, tp=1)
+    n_loc = MSM_N // mesh.dp
+    total = {k: 0 for k in native.launches()}
+    recs = []
+    for ops in (secp256k1(), bn254()):
+        points, scalars, want = msm_inputs(ops, MSM_N, dev)
+        nbits = ops.curve.n.bit_length()
+        fn, finish = sharded.sharded_pippenger_msm_fn(mesh, ops, nbits=nbits,
+                                                      n_local=n_loc)
+        times, one_times, per_run = [], [], None
+        for i in range(4):
+            before = native.launches()
+            t0 = time.perf_counter()
+            got = finish(fn(points, scalars))
+            dt = time.perf_counter() - t0
+            if ops.to_affine(got)[0] != want:
+                raise AssertionError(f"sharded MSM on {ops.fp.name}: not the "
+                                     f"golden point")
+            per_run = {k: v - before[k] for k, v in native.launches().items()}
+            for k, v in per_run.items():
+                total[k] += v              # the sharded runs' launches only
+            t0 = time.perf_counter()
+            one = kernels.msm(ops, points, scalars, nbits)
+            one_dt = time.perf_counter() - t0
+            if ops.to_affine(one)[0] != want:
+                raise AssertionError("one-device MSM mismatch vs golden")
+            if i:
+                times.append(dt)
+                one_times.append(one_dt)
+        if per_run["pip_bucket"] != mesh.dp or per_run["group_sum"] != 1:
+            raise AssertionError(f"sharded MSM launches {per_run}")
+        recs.append({"curve": ops.fp.name, "n": MSM_N, "n_local": n_loc,
+                     "s_per_msm": min(times), "runs_s": times,
+                     "one_device_s": min(one_times),
+                     "one_device_runs_s": one_times,
+                     "launches_per_run": {k: v for k, v in per_run.items()
+                                          if v}})
+        del points, scalars
+    emit({"check": "mesh msm", "mesh": mesh.shape, "runs": recs,
+          "card": card})
+    return total
+
+
+def run_mesh_cluster(card) -> dict:
+    """(g4): two processes of tools/run_multihost.py with gloo, each with 2
+    shards on cuda:0 (the mesh of `multihost.make_mesh()`: dp = 2 across
+    the processes, so every exchange stage crosses them, tp = 2 within
+    each), the IPA epoch at n = 1024. Both must print "audit PASSED".
+    Returns each process's record (seconds, bytes, launches)."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "porla_tpu_torch.tools.run_multihost",
+         "--coordinator", f"localhost:{port}", "--nprocs", "2",
+         "--proc-id", str(r), "--backend", "gloo", "--device",
+         "cuda:0,cuda:0", "--n", str(N_BLOCKS)], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=400)
+            outs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            print(f"cluster {r}: {line}", flush=True)
+        if p.returncode != 0 or "audit PASSED" not in out:
+            raise AssertionError(f"cluster process {r} failed "
+                                 f"(rc {p.returncode})")
+        recs.append(json.loads(out.strip().splitlines()[-1]))
+        if recs[-1]["mesh"] != {"blocks": 2, "chunks": 2}:
+            raise AssertionError(f"cluster mesh {recs[-1]['mesh']}")
+    emit({"check": "mesh cluster", "backend": "gloo", "n": N_BLOCKS,
+          "processes": [{k: rec[k] for k in ("proc", "mesh", "s", "epoch_s",
+                                             "init_s", "traffic", "launches")}
+                        for rec in recs], "card": card})
+    return {r: rec["launches"] for r, rec in enumerate(recs)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2036,8 +2324,8 @@ def main() -> int:
             if "count" not in line and "gauge" not in line:
                 print("trace", scheme, line, flush=True)
         check_protocol_launches(scheme, *runs[scheme][:2])
-    phases, total, k3_lanes = runs["ipa"]
-    kzg_phases, kzg_total, _ = runs["kzg"]
+    phases, total, k3_lanes, _ = runs["ipa"]
+    kzg_phases, kzg_total, _, _ = runs["kzg"]
     msm_kernels = ("pip_bucket", "bucket_fold", "point_butterfly_window")
 
     msm_runs, msm_total, k5, k6 = run_msm(
@@ -2139,6 +2427,30 @@ def main() -> int:
     emit({"phase": "icc", "s": time.perf_counter() - t0,
           "launches": icc_total})
 
+    # (g) the multi-device mesh: (g1) paths (a) and (b) on a logical (2, 2)
+    # mesh of the card, (g2) the distributed NTT and (g3) the sharded MSM
+    # on dp = 4, (g4) two processes over gloo; each driven with the counts
+    # set to 0 just before it and read just after
+    t0 = time.perf_counter()
+    mesh_runs = run_mesh_protocol(dev, store, runs, card)
+    # (g2)'s count is its sharded encodes' launches alone (the comparisons
+    # with encode_crt and the plain version, and the timed runs, apart)
+    k1["mesh_encode"] = run_mesh_encode(dev, rng, card)
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            k1["mesh_encode"]["max_abs_err"])
+    mesh_encode_total = {k: 0 for k in native.launches()}
+    mesh_encode_total["ntt_stage"] = k1["mesh_encode"]["launches"]
+    mesh_msm_total = run_mesh_msm(dev, card)
+    missing = [k for k in ("pip_bucket", "bucket_fold", "group_sum")
+               if mesh_msm_total[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the mesh MSM: "
+                             f"{missing}")
+    cluster = run_mesh_cluster(card)
+    emit({"phase": "mesh", "s": time.perf_counter() - t0,
+          "launches": {"encode": mesh_encode_total, "msm": mesh_msm_total,
+                       **{f"cluster {r}": v for r, v in cluster.items()}}})
+
     # a row's ms, plain_ms and bound are at its secp256k1 shape (the IPA
     # path's); its BN254 numbers (the KZG path's) are under "bn254"
     rows = []
@@ -2152,6 +2464,13 @@ def main() -> int:
             per_phase.setdefault(key, []).append(rec["launches"][name])
         per_phase["run_msm"] = [msm_total[name]]
         per_phase["icc"] = [icc_total[name]]
+        for scheme, (m_phases, _) in mesh_runs.items():
+            for rec in m_phases:
+                per_phase.setdefault(f"mesh {scheme} {rec['phase']}",
+                                     []).append(rec["launches"][name])
+        per_phase["mesh encode"] = [mesh_encode_total[name]]
+        per_phase["mesh msm"] = [mesh_msm_total[name]]
+        per_phase["mesh cluster"] = [c[name] for c in cluster.values()]
         for log, *_ in ooc.values():
             for rec in log.records:
                 per_phase.setdefault(f"{rec['path']} {rec['scheme']} "
@@ -2162,7 +2481,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces,
             "launches": total[name] + kzg_total[name] + msm_total[name]
-            + sum(run[1][name] for run in ooc.values()) + icc_total[name],
+            + sum(run[1][name] for run in ooc.values()) + icc_total[name]
+            + sum(sum(r["launches"][name] for r in m_phases)
+                  for m_phases, _ in mesh_runs.values())
+            + mesh_encode_total[name] + mesh_msm_total[name]
+            + sum(c[name] for c in cluster.values()),
             "max_abs_err": max(r["max_abs_err"],
                                b["max_abs_err"] if b else 0),
             "ms": r["ms"],
@@ -2171,8 +2494,8 @@ def main() -> int:
             "shape": r["shape"],
             "launches_per_phase": per_phase,
             **{k: r[k] for k in ("shapes", "update_fold", "ooc",
-                                 "ooc_shapes", "icc", "depth_ms", "add_ms",
-                                 "nb")
+                                 "ooc_shapes", "icc", "mesh_encode",
+                                 "depth_ms", "add_ms", "nb")
                if k in r},
             **({"bn254": {k: b[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -56,14 +56,15 @@ class PorlaConfig:
     # file read-modify-writes instead (CRebuild_No_Cached and the disk mix,
     # Server.hpp:1835-2255, 954-1207).
     stream_stripe_blocks: int = 4096
-    # multi-chip: route ALL sharded audit MSMs through the perf-grade
-    # per-shard Pippenger kernel (parallel/sharded.py) even below its
-    # size cutoff, so the production MSM path is exercised by the
-    # multichip dryrun record and CI (it otherwise only triggers at
-    # n_local >= 4096 or nbits > 32)
+    # multi-device: route ALL sharded audit MSMs through the per-shard
+    # Pippenger kernels (parallel/sharded.py) even below their size cutoff,
+    # so the Pippenger path is exercised at small sizes (it otherwise only
+    # triggers at n_local >= 4096 or nbits > 32)
     force_sharded_pippenger: bool = False
-    # multi-device layout: the multi-device paths are not ported yet, so
-    # the port's server raises NotImplementedError when this is set.
+    # multi-device layout: a parallel.sharded.Mesh (sharded.make_mesh, or
+    # parallel.multihost.make_mesh across processes), or None for one
+    # device. The server shards the CRebuild, the commitments and the
+    # audit MSMs over it.
     mesh: object = None
 
     def __post_init__(self):

@@ -136,15 +136,30 @@ class Blinding(NamedTuple):
 
 
 _BLINDINGS: dict = {}
+_FLEET_SEED: int | None = None
+
+
+def set_fleet_seed(seed: int) -> None:
+    """Draw every later blinding of this process from `seed` instead of the
+    system's random source. In a multi-process run every process sets the
+    same 256-bit seed at init (`parallel.multihost.share_fleet_seed`), so
+    the shards of a sharded MSM, in whatever process, start their buckets at
+    the same points and the host's correction holds for all of them."""
+    global _FLEET_SEED
+    _FLEET_SEED = seed
 
 
 def blinding(ops: CurveOps, nb: int, seed: int | None = None,
              device="cpu") -> Blinding:
     """The process's blinding points for nb buckets, on `device`. The
     secret scalars are drawn once per process, curve and nb from
-    `random.SystemRandom()`; a `seed` (tests, reproducible debugging) draws
-    them from `random.Random(seed)` in the same order."""
+    `random.SystemRandom()`, or from `random.Random` of the fleet seed
+    (`set_fleet_seed`) in a multi-process run; a `seed` (tests,
+    reproducible debugging) draws them from `random.Random(seed)` in the
+    same order."""
     cv = ops.curve
+    if seed is None and _FLEET_SEED is not None:
+        seed = _FLEET_SEED
     key = (cv, nb, seed)
     host = _BLINDINGS.get(key)
     if host is None:

@@ -6,9 +6,12 @@ behind `butterfly_stage` / `encode_stages_pallas`). The kernel source is
 shared memory. `encode_lane` runs a lane's CRebuild stages in the passes of
 `pass_plan` (one launch at n <= 1024); `ntt_stage` is the one-stage call of
 the same kernel; `fold_lane` runs the first log2(m) stages over m <= n
-rows (ICC recovery's level fold, `icc_device`). Their plain versions are
-the plain stage loop (`engine.stage`). A CPU tensor goes to the plain
-version; a CUDA tensor launches the kernel or raises.
+rows (ICC recovery's level fold, `icc_device`, and a shard's local stages
+in `parallel.sharded`); `pair_stage` runs one stage over two blocks of rows
+that lie a stage's half-width apart (the sharded encode's exchange stage).
+Their plain versions are the plain stage loop (`engine.stage`). A CPU
+tensor goes to the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -123,6 +126,56 @@ def fold_lane(ctx: engine.NttContext, a: torch.Tensor, mod: mont.Modulus,
         _launch(src, out, tw, 0, 1 << (s0 - 1), s1 - s0 + 1, mod)
         src = out
     return src
+
+
+def _check_pair(ctx: engine.NttContext, m2: int, j0: int, rows: int):
+    if m2 & (m2 - 1) or 2 * m2 > ctx.n or not 0 <= j0 <= m2 - rows:
+        raise ValueError(f"twiddles {j0}..{j0 + rows} outside the stage of "
+                         f"half-width {m2} at n = {ctx.n}")
+
+
+def exchange_rows(ctx: engine.NttContext, lane: str, m2: int, j0: int,
+                  rows: int, device="cpu") -> torch.Tensor:
+    """The Montgomery twiddles v^(j0 + r), r < rows, of the stage with
+    half-width m2 as `pair_stage` reads them: rows m2 - 1 + j0 + r of the
+    lane's packed table (`ctx.stage_table`), as (rows, 16) limbs."""
+    _check_pair(ctx, m2, j0, rows)
+    w = ctx.stage_table(lane, device)[m2 - 1 + j0:m2 - 1 + j0 + rows]
+    w = w.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & L.LIMB_MASK, w >> 16], -1).flatten(-2)
+
+
+def pair_stage_plain(ctx: engine.NttContext, pair, mod: mont.Modulus,
+                     lane: str, m2: int, j0: int):
+    """The plain version of `pair_stage` on the stacked pair [u; t]."""
+    rows = pair.shape[0] // 2
+    return stage_plain(pair, exchange_rows(ctx, lane, m2, j0, rows,
+                                           pair.device), rows, mod)
+
+
+def pair_stage(ctx: engine.NttContext, u: torch.Tensor, t: torch.Tensor,
+               mod: mont.Modulus, lane: str, m2: int,
+               j0: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One stage of half-width m2 over two (rows, C…, 16) blocks whose rows
+    r are the stage's pairs (g0 + r, g0 + m2 + r), g0 = j0 mod m2, u the
+    lower rows: -> (u + v^(j0+r) * t, u - v^(j0+r) * t). The exchange stage
+    of the sharded encode (a shard and its partner, rows = the shard's),
+    as one K1 launch over the stacked pair with stride `rows`, reading the
+    lane's n-row table at the signed offset tw_off = rows - m2 - j0."""
+    _check_lane(u)
+    if u.shape != t.shape:
+        raise ValueError(f"pair halves {tuple(u.shape)} != {tuple(t.shape)}")
+    rows = u.shape[0]
+    pair = torch.cat([u, t])
+    if pair.device.type == "cpu":
+        out = pair_stage_plain(ctx, pair, mod, lane, m2, j0)
+    else:
+        _check_pair(ctx, m2, j0, rows)
+        _require(pair)
+        out = torch.empty_like(pair)
+        _launch(pair, out, ctx.stage_table(lane, pair.device),
+                rows - m2 - j0, rows, 1, mod)
+    return out[:rows], out[rows:]
 
 
 def _launch(a, out, tw, tw_off: int, stride: int, lg: int, mod):

@@ -10,7 +10,6 @@ on whatever device the tensors live on.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from porla_tpu_torch.curves import cuda_curve
@@ -75,15 +74,20 @@ def point_butterfly(M0s: list[JacPoint], M1s: list[JacPoint],
         return his, los
 
 
-def point_stage(ctx, s: int, planes: list[JacPoint], *,
-                ops) -> list[JacPoint]:
+def point_stage(ctx, s: int, planes: list[JacPoint], *, ops, tw=None,
+                nbits: int = 256) -> list[JacPoint]:
     """One radix-2 CRebuild stage over each (n,) point plane (the MAC
     mirror of the data stage loop, Server.hpp:1548-1687); all planes go
-    through one K3 launch."""
+    through one K3 launch (K7 at nbits != 256). tw: the stage's
+    standard-form twiddles as an (n, 16) tensor on the planes' device, row
+    g = v^(g mod m2) (`parallel.sharded.stage_twiddle_tables_std`'s
+    layout); by default from `ctx`."""
     n = planes[0].x.shape[0]
     m = 1 << s
     m2 = m >> 1
-    tw = ctx.twiddles(m2)
+    dev = planes[0].x.device
+    if tw is None:
+        tw = _dev(ctx.twiddles(m2).std, dev).repeat(n // m2, 1)
 
     def split(a, half):
         a2 = a.reshape(n // m, m, limbs.NLIMBS)
@@ -94,12 +98,15 @@ def point_stage(ctx, s: int, planes: list[JacPoint], *,
                           lo.reshape(n // m, m2, limbs.NLIMBS)],
                          dim=1).reshape(n, limbs.NLIMBS)
 
-    tw_tiled = Twiddles(*(np.tile(t, (n // m, 1)) for t in tw))
-    us = [JacPoint(*(split(c, 0) for c in p)) for p in planes]
-    ts = [JacPoint(*(split(c, 1) for c in p)) for p in planes]
-    his, los = point_butterfly(us, ts, tw_tiled, ops=ops)
-    return [JacPoint(*(join(h, lo) for h, lo in zip(hi, lo_)))
-            for hi, lo_ in zip(his, los)]
+    us = cat([JacPoint(*(split(c, 0) for c in p)) for p in planes])
+    ts = cat([JacPoint(*(split(c, 1) for c in p)) for p in planes])
+    with trace.span("point_butterfly", L=n // 2, planes=len(planes)):
+        hi, lo = cuda_curve.point_butterfly(
+            ops, us, ts, split(tw, 0).repeat(len(planes), 1), nbits)
+    h = n // 2
+    return [JacPoint(*(join(a[i * h:(i + 1) * h], b[i * h:(i + 1) * h])
+                       for a, b in zip(hi, lo)))
+            for i in range(len(planes))]
 
 
 def point_scale(M: JacPoint, scalars, nbits: int = 256, *,

@@ -12,15 +12,20 @@ for KZG the 192-byte opening and two 96-byte points (Server.hpp:898-916).
 The bytes are those of the reference package's server, so either package's
 client can talk to either server.
 
-Both schemes run on one device. Levels up to `config.top_caching_level`
-are held in memory; the data planes of the levels above it live in the
-reference's H_X/H_Y files, written by the streamed CRebuild and fold of
-protocol/stream.py (CRebuild_No_Cached and the disk `mix`), and audits read
-their samples back from those files. A ready server checkpoints to the
-reference package's `checkpoint.npz` + `checkpoint.json` layout (a
-file-backed level's data stays in its files), so either package resumes
-the other's checkpoint. The multi-device mesh paths raise
-NotImplementedError.
+Both schemes run on one device, or with `config.mesh` (a
+`parallel.sharded.Mesh`) over a mesh of devices, as the reference's server
+routes it: the cached CRebuild's data encode (the distributed NTT), the MAC
+stages of both CRebuilds, every commitment batch (tensor parallel over the
+generators, `_commit_batch`) and the audit's MAC and alignment MSMs (data
+parallel, `_msm_sharded`); updates' folds stay on `device`. Levels up to
+`config.top_caching_level` are held in memory; the data planes of the
+levels above it live in the reference's H_X/H_Y files, written by the
+streamed CRebuild and fold of protocol/stream.py (CRebuild_No_Cached and
+the disk `mix`), and audits read their samples back from those files. A
+ready server checkpoints to the reference package's `checkpoint.npz` +
+`checkpoint.json` layout (a file-backed level's data stays in its files),
+so either package resumes the other's checkpoint, and a mesh server's
+checkpoint resumes on one device.
 """
 
 from __future__ import annotations
@@ -40,21 +45,20 @@ from porla_tpu_torch.curves.weierstrass import JacPoint, cat, index
 from porla_tpu_torch.fields import limbs
 from porla_tpu_torch.golden import ecc
 from porla_tpu_torch.ntt import engine
-from porla_tpu_torch.ntt.engine import CrtArray, NttContext
+from porla_tpu_torch.ntt.engine import MOD_P, CrtArray, NttContext
+from porla_tpu_torch.parallel import sharded
 from porla_tpu_torch.protocol import auditing, compute, hlog, points_io, stream
 from porla_tpu_torch.protocol.hlog import Level, Planes
 from porla_tpu_torch.storage.store import BlockStore
 from porla_tpu_torch.utils import trace
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to porla_tpu_torch yet")
-
-
 class PorlaServer:
     def __init__(self, config: PorlaConfig, device="cuda"):
-        if config.mesh is not None:
-            raise _not_ported("the multi-device mesh")
+        if config.mesh is not None and not isinstance(config.mesh,
+                                                      sharded.Mesh):
+            raise TypeError(f"config.mesh is a {type(config.mesh).__name__}"
+                            f", not a parallel.sharded.Mesh")
         self.config = config
         self.device = native.resolve_device(device)
         self.store = BlockStore(config.storage_dir)
@@ -67,6 +71,7 @@ class PorlaServer:
             self.ops = bn254()
         self.num_blocks = 0
         self.write_step = 0
+        self._mesh = config.mesh
         self._state = "generators"
 
     # ------------------------------------------------------------------ wire
@@ -117,6 +122,24 @@ class PorlaServer:
         self.levels = [Level(Planes(), Planes()) for _ in range(self.height)]
         self.mac_u = hlog.infinity_points(num_blocks, self.ops, self.device)
         self._blocks_received = 0
+        if self._mesh is not None:
+            self._setup_sharded()
+
+    def _setup_sharded(self) -> None:
+        """Multi-device mode: the sharded functions over the configured
+        mesh (parallel/sharded.py). The data encode shards blocks over
+        "blocks" with shard exchanges at the wide stages; the MAC mirror is
+        a sharded point stage per stage; commitments are tensor parallel
+        over "chunks"; the audit's combination MSMs data parallel."""
+        ctx, mesh = self.ctx, self._mesh
+        self._sh_enc = {lane: sharded.sharded_encode_fn(ctx, mesh, mod)
+                        for lane, mod in (("p", MOD_P), ("q", ctx.mod_q))}
+        self._sh_tab_std = [sharded.stage(mesh, t.to(self.device)) for t in
+                            sharded.stage_twiddle_tables_std(ctx)]
+        self._sh_pt = sharded.sharded_point_stage_fn(ctx, mesh, self.ops)
+        self._sh_commit = sharded.sharded_commit_fn(mesh, self.ops)
+        self._sh_msm32 = sharded.sharded_msm_fn(mesh, self.ops, nbits=32)
+        self._sh_pip: dict = {}
 
     def _recv_blocks(self, msg: bytes) -> None:
         with trace.span("server.recv_blocks"):
@@ -177,12 +200,8 @@ class PorlaServer:
         # per-stage point butterflies (K3). Alignments reset to infinity
         # (no align_MAC in the cached path).
         with trace.span("server.crebuild.data"):
-            dx = compute.encode_crt(self.mod_q, ctx, data_x)
-            dy = compute.encode_crt(self.mod_q, ctx, data_y)
-        cx, cy = self.mac_u, mc_y
-        for s in range(1, self.height):
-            with trace.span("server.crebuild.mac_stage", s=s):
-                cx, cy = compute.point_stage(ctx, s, [cx, cy], ops=self.ops)
+            dx, dy = self._encode(data_x), self._encode(data_y)
+        cx, cy = self._mac_stages([self.mac_u, mc_y])
 
         top = self.levels[self.height - 1]
         top.x = Planes(data=dx, points={
@@ -212,11 +231,8 @@ class PorlaServer:
                 stream.stream_stages(self.store, ctx, tag, n, first, last, S,
                                      dev)
 
-        cx = self.mac_u
         cy = compute.point_scale(self.mac_u, wt.std, ops=self.ops)
-        for s in range(1, self.height):
-            with trace.span("server.crebuild.mac_stage", s=s):
-                cx, cy = compute.point_stage(ctx, s, [cx, cy], ops=self.ops)
+        cx, cy = self._mac_stages([self.mac_u, cy])
 
         ax = stream.finalize_staged_level(self, tag_x, True, top, n, S)
         ay = stream.finalize_staged_level(self, tag_y, False, top, n, S)
@@ -226,6 +242,33 @@ class PorlaServer:
         lv.empty = False
         lv.file_backed = True
         hlog.clear_below(self.levels, top)
+
+    def _encode(self, a: CrtArray) -> CrtArray:
+        """All CRebuild stages over an (n, C, 16) CRT array: K1 per lane, or
+        the distributed NTT over the mesh, gathered back to `device`."""
+        if self._mesh is None:
+            return compute.encode_crt(self.mod_q, self.ctx, a)
+        return CrtArray(*(sharded.gather(self._mesh, self._sh_enc[lane](x),
+                                         self.device)
+                          for lane, x in (("p", a.p), ("q", a.q))))
+
+    def _mac_stages(self, planes: list[JacPoint]) -> list[JacPoint]:
+        """The CRebuild stages s = 1..height-1 over the (n,) MAC planes,
+        all planes in one K3 launch a stage (a shard or shard pair with a
+        mesh, the planes sharded from the first stage to the last)."""
+        mesh = self._mesh
+        if mesh is not None:
+            planes = [sharded.stage(mesh, p) for p in planes]
+        for s in range(1, self.height):
+            with trace.span("server.crebuild.mac_stage", s=s):
+                if mesh is None:
+                    planes = compute.point_stage(self.ctx, s, planes,
+                                                 ops=self.ops)
+                else:
+                    planes = self._sh_pt[s](planes, self._sh_tab_std[s - 1])
+        if mesh is not None:
+            planes = [sharded.gather(mesh, p, self.device) for p in planes]
+        return planes
 
     # --------------------------------------------------------------- update
 
@@ -367,11 +410,46 @@ class PorlaServer:
     def _commit_batch(self, scalars: torch.Tensor) -> JacPoint:
         """Commit a (B, NUM_CHUNKS, 16) scalar batch: the Pedersen MSM over
         the IPA generators, or the SRS MSM for KZG (compute_digest_from_srs,
-        main.go:103-116); one K4 launch either way."""
-        if self.config.scheme == "ipa":
-            return pedersen.commit_blocks(self.generators, scalars, self.ops)
-        return pedersen.commit_blocks(self.srs.g1_dev(self.device), scalars,
-                                      self.ops)
+        main.go:103-116); one K4 launch either way, or with a mesh K4 on
+        every grid cell and `group_sum` over each block's tp partials (the
+        multi-device form of the 8-thread commitment splits,
+        Server.hpp:330-361), B padded to a multiple of dp with zero
+        scalars."""
+        gens = self.generators if self.config.scheme == "ipa" else \
+            self.srs.g1_dev(self.device)
+        if self._mesh is None:
+            return pedersen.commit_blocks(gens, scalars, self.ops)
+        B, dp = scalars.shape[0], self._mesh.dp
+        pad = -B % dp
+        if pad:
+            scalars = torch.cat([scalars, scalars.new_zeros(
+                (pad,) + tuple(scalars.shape[1:]))])
+        out = sharded.gather(self._mesh, self._sh_commit(gens, scalars),
+                             self.device)
+        return index(out, slice(0, B))
+
+    def _msm_sharded(self, pts: JacPoint, coeffs: list[int]) -> JacPoint:
+        """A data-parallel audit-combination MSM (32-bit coefficients) over
+        the mesh (Server.hpp:831-848), the point axis padded to a multiple
+        of dp with zero-scalar lanes (identity contributions). From
+        `PIPPENGER_CROSSOVER` points a shard, or with
+        `config.force_sharded_pippenger`, the per-shard Pippenger kernels
+        (K5 + K6, the window from `choose_c`), else K2 per shard."""
+        mesh, dev = self._mesh, self.device
+        n = pts.x.shape[0]
+        pad = -n % mesh.dp
+        sc = limbs.ints_to_tensor(list(coeffs) + [0] * pad, dev)
+        if pad:
+            pts = cat([pts, index(pts, [0] * pad)])
+        n_loc = (n + pad) // mesh.dp
+        if (n_loc >= ck.PIPPENGER_CROSSOVER
+                or self.config.force_sharded_pippenger):
+            if n_loc not in self._sh_pip:
+                self._sh_pip[n_loc] = sharded.sharded_pippenger_msm_fn(
+                    mesh, self.ops, nbits=32, n_local=n_loc)
+            fn, finish = self._sh_pip[n_loc]
+            return finish(fn(pts, sc)).to(dev)
+        return self._sh_msm32(pts, sc).to(dev)
 
     # ---------------------------------------------------------------- audit
 
@@ -442,11 +520,15 @@ class PorlaServer:
             B = compute.linear_combine_crt(self.mod_q, blocks, coeffs)
 
         with trace.span("server.audit.msm", n=len(coeffs)):
-            # MAC + alignment MSMs share coefficients: one K2 launch over
-            # the stacked point set, reduced per half
-            combined_mac_j, combined_align_j = ck.msm_parts(
-                ops, cat([ptc, pta]), limbs.ints_to_tensor(coeffs + coeffs, dev),
-                2, nbits=32)
+            if self._mesh is not None:
+                combined_mac_j = self._msm_sharded(ptc, coeffs)
+                combined_align_j = self._msm_sharded(pta, coeffs)
+            else:
+                # MAC + alignment MSMs share coefficients: one K2 launch
+                # over the stacked point set, reduced per half
+                combined_mac_j, combined_align_j = ck.msm_parts(
+                    ops, cat([ptc, pta]),
+                    limbs.ints_to_tensor(coeffs + coeffs, dev), 2, nbits=32)
 
         # align_MAC(B, combined_align); commitment over the reduced B
         B1 = CrtArray(B.p[None], B.q[None])

@@ -53,7 +53,7 @@ def test_entry_points_take_an_explicit_device(tmp_path):
             PorlaServer(cfg)              # device="cuda" by default
         with pytest.raises(RuntimeError):
             PorlaClient(cfg, None)
-    with pytest.raises(NotImplementedError):     # not ported yet
+    with pytest.raises(TypeError):     # a mesh is a parallel.sharded.Mesh
         PorlaServer(PorlaConfig(scheme="ipa", storage_dir=str(tmp_path),
                                 mesh=object()), device="cpu")
     assert native.resolve_device("cpu").type == "cpu"
