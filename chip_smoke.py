@@ -42,9 +42,10 @@
    that the next audit must reject; then a checkpoint, a new server
    restored from it on the card, and an audit, an update and an audit
    against it that verify. In each scheme K1-K4's and group_sum's launch
-   counts must rise up to the second audit, and initialize must launch K1
-   exactly 4 times (two CRT arrays of two lanes). K3 is then checked and
-   timed at the widest butterfly the IPA updates launched.
+   counts must rise up to the second audit, initialize must launch K1
+   exactly 4 times (two CRT arrays of two lanes) and no update any. K3 is
+   then checked and timed at the widest butterfly the IPA updates
+   launched.
 4. Runs the MSM entry point (see `run_msm`).
 5. Runs the out-of-core tier (`run_ooc`): (d) the IPA scheme at n = 2^14
    blocks with the default caching level (10) and stripe (4096 blocks):
@@ -59,11 +60,10 @@
    (level 6, whose lower is level 5's files), then the same corrupted
    audit, checkpoint, restore and audit. K2, K3, K4 and group_sum must be
    launched by each run, K1 by no streamed CRebuild; K3 and K4 are then
-   checked and timed at (d)'s widest launches, and K2, K4 and group_sum at
-   every other shape these runs launched that phase 2 did not hold (on
-   each run's curve). Beside the runs: the native runtime's file IO at
-   (d)'s staging shape and the card's time for the plain butterfly over
-   one stripe.
+   checked and timed at (d)'s widest launches (K2, K4 and group_sum at
+   every other shape they launched after path (h), step 8). Beside the
+   runs: the native runtime's file IO at (d)'s staging shape and the
+   card's time for the plain butterfly over one stripe.
 6. Runs ICC erasure recovery (`run_icc`, path (f)): a level of m = 2^15
    blocks of 128 chunks in the hardened context at n = 2^16, encoded on K1
    in the p lane and secp256k1's n lane, recovered from 128 erased columns
@@ -89,6 +89,25 @@
    `porla_tpu_torch/tools/run_multihost.py` over gloo, two shards each on
    cuda:0, the IPA epoch at n = 1024, both printing "audit PASSED", with
    the bytes each moved.
+8. Runs the reference's self-test workload (path (h)): a full epoch at
+   n = 1024 blocks in each scheme, IPA then KZG, as step 3's cycle
+   (`run_protocol`) with n + 1 updates: initialize, an audit, round-robin
+   updates through write step n - 1, whose folds reach every level from 0
+   to 9, update n, which closes the epoch (the server's CRebuild from the
+   update path, the client's over the epoch's complements; the top level
+   full, every level below it empty), an audit, an update past the epoch,
+   an audit, an audit of a corrupted q residue of a rebuilt codeword that
+   it samples (refused), then the checkpoint, restore, audit, update and
+   audit with the codeword restored. Initialize and the closing update
+   must each launch K1 exactly 4 times, every other update none; K3 is
+   held at the widest butterfly each epoch's updates launched; the
+   amortized update, the closing update, the slowest update per fold
+   level and the audits are printed (`epoch_summary`).
+   Then the bench tool (`tools/bench.py`) runs once as a subprocess and
+   must print bench.py's three metric lines, BN254 last (printed again).
+   Last, K2, K4 and group_sum are held at every other shape that paths
+   (a), (b), (d), (e) and (h) launched and phase 2 did not check, on each
+   path's curve (`LaunchShapes`; the `path shapes` lines).
 Any failed phase raises, so the script exits nonzero and prints no result.
 It exits nonzero when torch finds no CUDA device or the port's package is
 not beside it.
@@ -238,28 +257,6 @@ def check_points(ops, name, got, plain, lanes, expect) -> int:
 
 # --- phase 2: the kernels ---------------------------------------------------
 
-def lane_values(rng, mod, count, dev):
-    """`count` values below `mod.n` as (count, 16) limbs on `dev`, drawn as
-    random 16-bit limbs with the top limb below the modulus's."""
-    lim = rng.integers(0, 1 << 16, size=(count, 16), dtype="int64")
-    lim[:, 15] %= mod.n >> 240
-    return torch.from_numpy(lim).to(dev)
-
-
-def exact_encode(ctx, mod, vals):
-    """The CRebuild stages over one column of Python ints (exact)."""
-    from porla_tpu_torch.fields import limbs as L
-    a = list(vals)
-    for s in range(1, ctx.height):
-        m2 = 1 << (s - 1)
-        std = [v % mod.n for v in L.limbs_to_ints(ctx.twiddles(m2).std)]
-        for k in range(len(a)):
-            if k % (2 * m2) < m2:
-                u, t = a[k], a[k + m2] * std[k % m2]
-                a[k], a[k + m2] = (u + t) % mod.n, (u - t) % mod.n
-    return a
-
-
 def check_k1(dev, rng, n=N_BLOCKS, chunks=128, big=1 << 14, scheme="ipa",
              lanes=("p", "q")):
     """K1 per CRT lane at the CRebuild shape (n, 128, 16): the lane's stages
@@ -270,9 +267,12 @@ def check_k1(dev, rng, n=N_BLOCKS, chunks=128, big=1 << 14, scheme="ipa",
     plain loop. The q lane is mod the scheme's group order (secp256k1's n,
     BN254's r). Returns the kernels line's row, with the `big` shape in
     `shapes`."""
+    import numpy as np
     from porla_tpu_torch import native
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.ntt import cuda_stage, engine
+    from porla_tpu_torch.tools.bench import lane_limbs
+    from porla_tpu_torch.tools.kat_onchip import exact_encode
 
     rows = []
     for nn in sorted({n, big}):
@@ -281,10 +281,9 @@ def check_k1(dev, rng, n=N_BLOCKS, chunks=128, big=1 << 14, scheme="ipa",
         for lane, mod in (("p", ctx.mod_p), ("q", ctx.mod_q)):
             if lane not in lanes:
                 continue
-            a = lane_values(rng, mod, nn * chunks, dev)
+            a = lane_limbs(rng, mod, (nn, chunks), dev)
             for k, v in enumerate((0, mod.n - 1, 1, mod.n - 1)):
-                a[k * chunks] = L.ints_to_tensor([v], dev)[0]  # edge values
-            a = a.reshape(nn, chunks, L.NLIMBS)
+                a[k, 0] = L.ints_to_tensor([v], dev)[0]  # edge values
             before = native.launches()["ntt_stage"]
             got = cuda_stage.encode_lane(ctx, a, mod, lane)
             if native.launches()["ntt_stage"] - before != len(plan):
@@ -295,8 +294,10 @@ def check_k1(dev, rng, n=N_BLOCKS, chunks=128, big=1 << 14, scheme="ipa",
             if err:
                 raise AssertionError(f"K1 lane {lane} at n = {nn}: max abs "
                                      f"err {err} against the stage loop")
-            if nn == n and L.tensor_to_ints(got[:, 0]) != exact_encode(
-                    ctx, mod, L.tensor_to_ints(a[:, 0])):
+            col = np.array(L.tensor_to_ints(a[:, :1]),
+                           dtype=object).reshape(nn, 1)
+            if nn == n and L.tensor_to_ints(got[:, 0]) != list(
+                    exact_encode(mod.n, col).ravel()):
                 raise AssertionError(f"K1 lane {lane}: chunk 0 differs from "
                                      f"exact ints")
             tws = [L.to_torch(getattr(ctx.twiddles(1 << (s - 1)),
@@ -895,26 +896,6 @@ def check_k7(dev, rng, ops, B=N_BLOCKS, nbits=64, ragged=K7_RAGGED):
 
 # --- phase 4: the MSM entry point -------------------------------------------
 
-def msm_inputs(ops, n, dev, nbases=8):
-    """Operands as `bench.py` builds them: 8 random bases tiled over n
-    lanes (the golden sum stays O(n) host ints), scalars below the group
-    order from a seed, on `dev`."""
-    from porla_tpu_torch.curves.weierstrass import JacPoint
-    from porla_tpu_torch.fields import limbs as L
-    from porla_tpu_torch.golden import ecc
-    rng = random.Random(7)
-    cv = ops.curve
-    bases = [ecc.mul(cv, cv.g, rng.randrange(1, cv.n)) for _ in range(nbases)]
-    sc = [rng.getrandbits(256) % cv.n for _ in range(n)]
-    ph = ops.from_affine(bases)
-    points = JacPoint(*(c.repeat(n // nbases, 1).to(dev) for c in ph))
-    want = ecc.INF
-    for g in range(nbases):
-        want = ecc.add(cv, want, ecc.mul(cv, bases[g],
-                                         sum(sc[g::nbases]) % cv.n))
-    return points, L.ints_to_tensor(sc, dev), want
-
-
 def msm_stages(dev, ops, points, scalars, nbits, plain: bool, bt=None):
     """One MSM taken apart as `cuda_msm.pippenger_msm` runs it, on operands
     on the card: host-clock seconds per stage (synchronised), K5's and K6's
@@ -1097,6 +1078,7 @@ def check_compute_kernels_only(dev, rng, ops, n=N_BLOCKS):
     from porla_tpu_torch.golden import ecc
     from porla_tpu_torch.ntt import cuda_stage, engine
     from porla_tpu_torch.protocol import compute
+    from porla_tpu_torch.tools.bench import lane_limbs
 
     cv = ops.curve
     q = rand_points(rng, cv, 1)
@@ -1108,8 +1090,8 @@ def check_compute_kernels_only(dev, rng, ops, n=N_BLOCKS):
     if ops.to_affine(got) != [ecc.mul(cv, q[0], v)]:
         raise AssertionError("point_scale differs from the golden point")
     ctx = engine.NttContext(n, "ipa")
-    arr = engine.CrtArray(*(lane_values(rng, m, n * 128, dev).reshape(
-        n, 128, L.NLIMBS) for m in (ctx.mod_p, ctx.mod_q)))
+    arr = engine.CrtArray(*(lane_limbs(rng, m, (n, 128), dev)
+                            for m in (ctx.mod_p, ctx.mod_q)))
     got = assert_kernels_only(
         ops, lambda: compute.encode_crt(ctx.mod_q, ctx, arr),
         {"ntt_stage": 2 * len(cuda_stage.pass_plan(n))},
@@ -1133,6 +1115,7 @@ def run_msm(dev, kat_path):
     from porla_tpu_torch.curves.weierstrass import JacPoint
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.golden import ecc
+    from porla_tpu_torch.tools.bench import msm_inputs
 
     runs = []
 
@@ -1337,129 +1320,235 @@ class Recording:
         return reply
 
 
-def run_protocol(dev, store_dir, scheme="ipa", n=N_BLOCKS,
-                 n_updates=N_UPDATES, mesh=None):
-    """initialize -> audit -> updates -> audit -> corrupted audit, then
-    checkpoint -> restore into a new server -> audit -> update -> audit, on
-    `dev`, in `scheme`; with a `mesh`, the server sharded over it (the
-    restored one too), and last an audit with force_sharded_pippenger.
-    Returns (per-phase records, launches over the cycle up to the second
-    audit, the (phase, lanes) of every K3 launch, every (opcode, reply) in
-    order)."""
-    import dataclasses
+def refuse(client, seed: bytes, what: str):
+    """A function that runs the audit of `seed` and raises unless the
+    client refuses it."""
+    from porla_tpu_torch.protocol.client import AuditError
 
-    import numpy as np
-    from porla_tpu_torch import native
-    from porla_tpu_torch.config import PorlaConfig
-    from porla_tpu_torch.protocol.client import AuditError, PorlaClient
+    def audit():
+        try:
+            client.audit(seed=seed)
+        except AuditError:
+            return
+        raise AssertionError(f"the audit accepted {what}")
+    return audit
+
+
+def corrupt_sampled_codeword(server, seed: bytes):
+    """Flip one bit in the q residue of a top-level codeword (as
+    tests/test_protocol_e2e.py::test_corruption_is_detected does) that the
+    audit of `seed` samples with a nonzero coefficient: an audit samples
+    128 of the top level's 2n codewords. Returns a function that restores
+    the codeword."""
     from porla_tpu_torch.protocol import auditing
-    from porla_tpu_torch.protocol.server import PorlaServer
-    from porla_tpu_torch.curves import cuda_curve as cc
-    rng = np.random.default_rng(SEED + 1)
-    seed = lambda: rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
-    # the lanes of every 256-bit butterfly (K3), by phase (what check_k3
-    # sizes to)
-    k3_lanes, current = [], [None]
-    butterfly = cc.point_butterfly
-
-    def recorded(ops, m0, m1, scalars, nbits=256):
-        if nbits == 256:
-            k3_lanes.append((current[0], m0.x.shape[0]))
-        return butterfly(ops, m0, m1, scalars, nbits)
-    cfg = PorlaConfig(scheme=scheme, storage_dir=store_dir, mesh=mesh)
-    server = PorlaServer(cfg, device=dev)
-    replies = []
-    client = PorlaClient(cfg, Recording(server, replies), data_seed=seed(),
-                         device=dev)
-    phases = []
-    label = scheme if mesh is None else f"mesh {scheme}"
-
-    def phase(name, fn):
-        before = native.launches()
-        current[0] = name
-        t0 = time.perf_counter()
-        fn()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        rec = {"phase": name, "scheme": label,
-               "s": time.perf_counter() - t0,
-               "launches": {k: v - before[k]
-                            for k, v in native.launches().items()}}
-        phases.append(rec)
-        emit(rec)
-
-    def update():
-        client.update(client.write_step % client.num_blocks + 1)
-
-    cc.point_butterfly = recorded
-    try:
-        native.reset_launches()
-        phase("initialize", lambda: client.initialize(n))
-        phase("audit", lambda: client.audit(seed=seed()))
-        for _ in range(n_updates):
-            phase("update", update)
-        phase("audit", lambda: client.audit(seed=seed()))
-        total = native.launches()
-    finally:
-        cc.point_butterfly = butterfly
-
-    # one flipped bit in a stored codeword (its q residue, as in
-    # tests/test_protocol_e2e.py::test_corruption_is_detected) must fail
-    # the next audit. An audit samples 128 of the top level's 2n codewords,
-    # so the corrupted one is a codeword that this audit's plan samples
-    # with a nonzero coefficient.
-    audit_seed = seed()
-    plan = auditing.build_audit_plan(audit_seed, server.write_step, n,
-                                     server.height)
+    top = server.height - 1
+    plan = auditing.build_audit_plan(seed, server.write_step,
+                                     server.num_blocks, server.height)
     hit = next(s for s in plan.samples
-               if s.level == server.height - 1 and s.coeff % server.mod_q.n)
-    side = server.levels[hit.level].x if hit.is_x else \
-        server.levels[hit.level].y
+               if s.level == top and s.coeff % server.mod_q.n)
+    side = server.levels[top].x if hit.is_x else server.levels[top].y
     orig = side.data
     bad = orig.q.clone()
     bad[hit.index, 0, 0] ^= 1
     side.data = type(orig)(orig.p, bad)
 
-    def corrupted():
-        try:
-            client.audit(seed=audit_seed)
-        except AuditError:
-            return
-        raise AssertionError("the audit accepted a corrupted codeword")
-
-    phase("audit_corrupted", corrupted)
-    side.data = orig
-
-    # checkpoint and resume: a new server restored on the card from the
-    # files takes over, and the client goes on with it
     def restore():
-        client.transport = Recording(PorlaServer.restore(cfg, device=dev),
-                                     replies)
-    phase("checkpoint", server.save_checkpoint)
-    phase("restore", restore)
-    phase("resume_audit", lambda: client.audit(seed=seed()))
-    phase("resume_update", update)
-    phase("resume_audit", lambda: client.audit(seed=seed()))
-    if mesh is not None:
-        resumed = client.transport.server
-        resumed.config = dataclasses.replace(cfg,
-                                             force_sharded_pippenger=True)
-        phase("audit_forced_pippenger", lambda: client.audit(seed=seed()))
-    return phases, total, k3_lanes, replies
+        side.data = orig
+    return restore
+
+
+class PhaseLog:
+    """Runs a path's phases, each with its host seconds (the card
+    synchronised at its end) and its kernels' launches; emits a line each,
+    except for the phases named in `quiet` (see `merged`)."""
+
+    def __init__(self, path: str, scheme: str, dev, quiet=()):
+        self.path, self.scheme, self.dev = path, scheme, dev
+        self.quiet = quiet
+        self.records = []
+
+    def __call__(self, name, fn, **attrs):
+        from porla_tpu_torch import native
+        before = native.launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(self.dev)
+        rec = {"path": self.path, "phase": name, "scheme": self.scheme,
+               **attrs, "s": time.perf_counter() - t0,
+               "launches": {k: v - before[k]
+                            for k, v in native.launches().items()}}
+        self.records.append(rec)
+        if name not in self.quiet:
+            emit(rec)
+        return out
+
+
+def merged(records, name) -> dict:
+    """The records of the phase `name` as one: its calls, and their
+    seconds and launches summed."""
+    recs = [r for r in records if r["phase"] == name]
+    return {"path": recs[0]["path"], "phase": name,
+            "scheme": recs[0]["scheme"], "calls": len(recs),
+            "s": sum(r["s"] for r in recs),
+            "launches": {k: sum(r["launches"][k] for r in recs)
+                         for k in recs[0]["launches"]}}
+
+
+class LaunchShapes:
+    """While active, records the shape of every K2, K3, K4 and group_sum
+    launch by wrapping `cuda_curve`'s launch functions: "k3" the (phase,
+    lanes) of every 256-bit K3 launch (`phase` is what the caller last set),
+    "k4" the (lanes, groups, bases, nbits) of every K4 launch, "k2" the
+    (lanes, nbits) of every K2 launch, "group_sum" the (points, groups) of
+    every group_sum call on points."""
+
+    WRAPPED = ("point_butterfly", "launch_fixed_base",
+               "launch_scalar_mul_window", "launch_scalar_mul_glv",
+               "group_sum")
+
+    def __init__(self):
+        self.shapes = {"k3": [], "k4": [], "k2": [], "group_sum": []}
+        self.phase = None
+
+    def __enter__(self):
+        from porla_tpu_torch.curves import cuda_curve as cc
+        self.cc = cc
+        fns = self.saved = {name: getattr(cc, name) for name in self.WRAPPED}
+        sh = self.shapes
+
+        def k3(ops, m0, m1, scalars, nbits=256):
+            if nbits == 256:
+                sh["k3"].append((self.phase, m0.x.shape[0]))
+            return fns["point_butterfly"](ops, m0, m1, scalars, nbits)
+
+        def k4(table, scalars, nout):
+            sh["k4"].append((scalars.shape[0], nout, table.ng, table.nbits))
+            return fns["launch_fixed_base"](table, scalars, nout)
+
+        def k2_window(ops, p, scalars, nbits):
+            sh["k2"].append((p.x.shape[0], nbits))
+            return fns["launch_scalar_mul_window"](ops, p, scalars, nbits)
+
+        def k2_glv(ops, p, g):
+            sh["k2"].append((p.x.shape[0], 256))
+            return fns["launch_scalar_mul_glv"](ops, p, g)
+
+        def group_sum(ops, points, nout):
+            sh["group_sum"].append((points.x.shape[0], nout))
+            return fns["group_sum"](ops, points, nout)
+
+        for name, fn in zip(self.WRAPPED,
+                            (k3, k4, k2_window, k2_glv, group_sum)):
+            setattr(cc, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cc, name, fn)
+
+
+def run_protocol(dev, store_dir, scheme="ipa", n=N_BLOCKS,
+                 n_updates=N_UPDATES, audit_after=(), mesh=None,
+                 path="protocol", quiet=()):
+    """initialize -> audit -> `n_updates` round-robin updates (an audit
+    after each count in `audit_after`) -> audit -> corrupted audit, then
+    checkpoint -> restore into a new server -> audit -> update -> audit, on
+    `dev`, in `scheme`; with a `mesh`, the server sharded over it (the
+    restored one too), and last an audit with force_sharded_pippenger. An
+    update that closes an epoch (write step a multiple of n) is the phase
+    "epoch_close"; every update's record holds its write step. Returns
+    (per-phase records, launches over the cycle up to the audit after the
+    updates, the shapes of its K2, K3, K4 and group_sum launches (K3 by
+    phase; `LaunchShapes`), every (opcode, reply) in order)."""
+    import dataclasses
+
+    import numpy as np
+    from porla_tpu_torch import native
+    from porla_tpu_torch.config import PorlaConfig
+    from porla_tpu_torch.protocol.client import PorlaClient
+    from porla_tpu_torch.protocol.server import PorlaServer
+    rng = np.random.default_rng(SEED + 1)
+    seed = lambda: rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+    cfg = PorlaConfig(scheme=scheme, storage_dir=store_dir, mesh=mesh)
+    server = PorlaServer(cfg, device=dev)
+    replies = []
+    client = PorlaClient(cfg, Recording(server, replies), data_seed=seed(),
+                         device=dev)
+    log = PhaseLog(path, scheme if mesh is None else f"mesh {scheme}", dev,
+                   quiet)
+    recorder = LaunchShapes()
+
+    def phase(name, fn, **attrs):
+        recorder.phase = name
+        log(name, fn, **attrs)
+
+    def update(name="update"):
+        ws = client.write_step + 1
+        if name == "update" and ws % n == 0:
+            name = "epoch_close"
+        phase(name, lambda: client.update(client.write_step % n + 1),
+              write_step=ws)
+        top = server.height - 1
+        if name == "epoch_close" and (server.levels[top].empty or any(
+                not lv.empty for lv in server.levels[:top])):
+            raise AssertionError(f"{scheme}: the update at write step {ws} "
+                                 f"did not close the epoch into level {top}")
+
+    with recorder:
+        native.reset_launches()
+        phase("initialize", lambda: client.initialize(n))
+        phase("audit", lambda: client.audit(seed=seed()))
+        for step in range(1, n_updates + 1):
+            update()
+            if step in audit_after:
+                phase("audit", lambda: client.audit(seed=seed()))
+        phase("audit", lambda: client.audit(seed=seed()))
+        total = native.launches()
+
+        # one flipped bit in a stored codeword of the top level that the
+        # next audit samples must fail it
+        audit_seed = seed()
+        restore_codeword = corrupt_sampled_codeword(server, audit_seed)
+        phase("audit_corrupted", refuse(client, audit_seed,
+                                        "a corrupted codeword"))
+        restore_codeword()
+
+        # checkpoint and resume: a new server restored on the card from the
+        # files takes over, and the client goes on with it
+        def restore():
+            client.transport = Recording(PorlaServer.restore(cfg, device=dev),
+                                         replies)
+        phase("checkpoint", server.save_checkpoint)
+        phase("restore", restore)
+        phase("resume_audit", lambda: client.audit(seed=seed()))
+        update("resume_update")
+        phase("resume_audit", lambda: client.audit(seed=seed()))
+        if mesh is not None:
+            resumed = client.transport.server
+            resumed.config = dataclasses.replace(cfg,
+                                                 force_sharded_pippenger=True)
+            phase("audit_forced_pippenger",
+                  lambda: client.audit(seed=seed()))
+    return log.records, total, recorder.shapes, replies
 
 
 def check_protocol_launches(scheme, phases, total, init_k1=4) -> None:
-    """K1-K4 and group_sum were launched by the cycle, and initialize
-    launched K1 exactly `init_k1` times (two CRT arrays of two lanes, one
-    K1 pass a lane on one device)."""
+    """K1-K4 and group_sum were launched by the cycle, initialize and every
+    update that closed an epoch (the server's CRebuild from the update
+    path) launched K1 exactly `init_k1` times (two CRT arrays of two lanes,
+    one K1 pass a lane on one device), and every other update none."""
     missing = [k for k in PROTOCOL_KERNELS if total[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the {scheme} protocol "
                              f"run: {missing}")
-    if phases[0]["launches"]["ntt_stage"] != init_k1:
-        raise AssertionError(f"{scheme} initialize launched K1 "
-                             f"{phases[0]['launches']['ntt_stage']} times, "
-                             f"not {init_k1}")
+    for rec in phases:
+        want = {"initialize": init_k1, "epoch_close": init_k1, "update": 0,
+                "resume_update": 0}.get(rec["phase"])
+        if want is not None and rec["launches"]["ntt_stage"] != want:
+            raise AssertionError(
+                f"{scheme} {rec['phase']} (write step "
+                f"{rec.get('write_step', 0)}) launched K1 "
+                f"{rec['launches']['ntt_stage']} times, not {want}")
 
 
 PROTOCOL_KERNELS = ("ntt_stage", "scalar_mul_window", "scalar_mul_glv",
@@ -1593,29 +1682,6 @@ def stripe_butterfly(dev, pairs: int) -> None:
     emit({"stripe_butterfly": {"pairs": pairs, "ms": ms}})
 
 
-class PhaseLog:
-    """Runs a path's phases, each with its host seconds (the card
-    synchronised at its end) and its kernels' launches; emits a line each."""
-
-    def __init__(self, path: str, scheme: str, dev):
-        self.path, self.scheme, self.dev = path, scheme, dev
-        self.records = []
-
-    def __call__(self, name, fn, **attrs):
-        from porla_tpu_torch import native
-        before = native.launches()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize(self.dev)
-        rec = {"path": self.path, "phase": name, "scheme": self.scheme,
-               **attrs, "s": time.perf_counter() - t0,
-               "launches": {k: v - before[k]
-                            for k, v in native.launches().items()}}
-        self.records.append(rec)
-        emit(rec)
-        return out
-
-
 def corrupt_sampled_file(server, seed: bytes):
     """Flip one bit in a codeword file that the audit of `seed` samples
     with a nonzero coefficient from a file-backed level. Returns (path,
@@ -1651,16 +1717,12 @@ def run_ooc(dev, store_dir, scheme, n, updates, audit_after, **cfg_kw):
     `audit_after` (and after the last), an audit of a corrupted codeword
     file (refused; the byte is then restored), a checkpoint, a server
     restored from it on the card and an audit. Returns (PhaseLog, launches
-    over the path, the shapes its kernels were launched at, the
-    initialize's memory line). The shapes: "k3" the lanes of every K3
-    launch, "k4" the (lanes, groups, bases, nbits) of every K4 launch, "k2"
-    the (lanes, nbits) of every K2 launch, "group_sum" the (points, groups)
-    of every group_sum call on points."""
+    over the path, the shapes its kernels were launched at
+    (`LaunchShapes`), the initialize's memory line)."""
     import numpy as np
     from porla_tpu_torch import native
     from porla_tpu_torch.config import PorlaConfig
-    from porla_tpu_torch.curves import cuda_curve as cc
-    from porla_tpu_torch.protocol.client import AuditError, PorlaClient
+    from porla_tpu_torch.protocol.client import PorlaClient
     from porla_tpu_torch.protocol.server import PorlaServer
     from porla_tpu_torch.protocol.transport import InProcTransport
 
@@ -1672,39 +1734,12 @@ def run_ooc(dev, store_dir, scheme, n, updates, audit_after, **cfg_kw):
                          device=dev)
     path = "ooc" if n == OOC_N else "ooc_e"
     log = PhaseLog(path, scheme, dev)
-    shapes = {"k3": [], "k4": [], "k2": [], "group_sum": []}
-    wrapped = ("point_butterfly", "launch_fixed_base",
-               "launch_scalar_mul_window", "launch_scalar_mul_glv",
-               "group_sum")
-    launch_fns = {name: getattr(cc, name) for name in wrapped}
-
-    def k3(ops, m0, m1, scalars, nbits=256):
-        if nbits == 256:
-            shapes["k3"].append(m0.x.shape[0])
-        return launch_fns["point_butterfly"](ops, m0, m1, scalars, nbits)
-
-    def k4(table, scalars, nout):
-        shapes["k4"].append((scalars.shape[0], nout, table.ng, table.nbits))
-        return launch_fns["launch_fixed_base"](table, scalars, nout)
-
-    def k2_window(ops, p, scalars, nbits):
-        shapes["k2"].append((p.x.shape[0], nbits))
-        return launch_fns["launch_scalar_mul_window"](ops, p, scalars, nbits)
-
-    def k2_glv(ops, p, g):
-        shapes["k2"].append((p.x.shape[0], 256))
-        return launch_fns["launch_scalar_mul_glv"](ops, p, g)
-
-    def group_sum(ops, points, nout):
-        shapes["group_sum"].append((points.x.shape[0], nout))
-        return launch_fns["group_sum"](ops, points, nout)
 
     def update():
         client.update(client.write_step % client.num_blocks + 1)
 
-    for name, fn in zip(wrapped, (k3, k4, k2_window, k2_glv, group_sum)):
-        setattr(cc, name, fn)
-    try:
+    recorder = LaunchShapes()
+    with recorder:
         native.reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         with RssPeak() as rss:
@@ -1736,18 +1771,12 @@ def run_ooc(dev, store_dir, scheme, n, updates, audit_after, **cfg_kw):
             if step in audit_after or step == updates:
                 log("audit", lambda: client.audit(seed=seed()))
 
-        def corrupted():
-            try:
-                client.audit(seed=audit_seed)
-            except AuditError:
-                return
-            raise AssertionError(f"{path}: the audit accepted a corrupted "
-                                 f"codeword file")
-
         audit_seed = seed()
         bad_path, orig = corrupt_sampled_file(server, audit_seed)
         try:
-            log("audit_corrupted", corrupted)
+            log("audit_corrupted", refuse(client, audit_seed,
+                                          f"a corrupted codeword file "
+                                          f"({path})"))
         finally:
             with open(bad_path, "wb") as f:
                 f.write(orig)
@@ -1759,14 +1788,11 @@ def run_ooc(dev, store_dir, scheme, n, updates, audit_after, **cfg_kw):
         log("restore", restore)
         log("resume_audit", lambda: client.audit(seed=seed()))
         total = native.launches()
-    finally:
-        for name, fn in launch_fns.items():
-            setattr(cc, name, fn)
     missing = [k for k in OOC_KERNELS if total[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the {path} {scheme} "
                              f"run: {missing}")
-    return log, total, shapes, memory
+    return log, total, recorder.shapes, memory
 
 
 # --- phase 6: ICC erasure recovery ------------------------------------------
@@ -1828,6 +1854,7 @@ def run_icc(dev):
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.ntt import cuda_stage, engine, icc_device
     from porla_tpu_torch.tools import icc_recover as tool
+    from porla_tpu_torch.tools.bench import lane_limbs
     from porla_tpu_torch.utils import trace
 
     card = native.card_line()
@@ -1972,7 +1999,7 @@ def run_icc(dev):
     mm, width = shape[0], shape[1]
     rows = []
     for lane, mod in (("p", ctx.mod_p), ("q", ctx.mod_q)):
-        a = lane_values(rng, mod, mm * width, dev).reshape(shape)
+        a = lane_limbs(rng, mod, (mm, width), dev)
 
         def plain():
             return icc_device.map_columns(
@@ -2099,6 +2126,7 @@ def run_mesh_encode(dev, rng, card) -> dict:
     from porla_tpu_torch.fields import limbs as L
     from porla_tpu_torch.ntt import cuda_stage, engine
     from porla_tpu_torch.parallel import sharded
+    from porla_tpu_torch.tools.bench import lane_limbs
     n, C = MESH_ENCODE_N, 128
     ctx = engine.NttContext(n, "ipa")
     mesh = sharded.make_mesh([dev] * MESH_DP, tp=1)
@@ -2106,7 +2134,7 @@ def run_mesh_encode(dev, rng, card) -> dict:
     want_k1 = mesh_encode_launches(n, mesh.dp)
     rows, launches = [], 0
     for lane, mod in (("p", ctx.mod_p), ("q", ctx.mod_q)):
-        a = lane_values(rng, mod, n * C, dev).reshape(n, C, L.NLIMBS)
+        a = lane_limbs(rng, mod, (n, C), dev)
         enc = sharded.sharded_encode_fn(ctx, mesh, mod)
         before = native.launches()["ntt_stage"]
         shards = enc(a)
@@ -2160,6 +2188,7 @@ def run_mesh_msm(dev, card) -> dict:
     from porla_tpu_torch.curves import kernels
     from porla_tpu_torch.curves.instances import bn254, secp256k1
     from porla_tpu_torch.parallel import sharded
+    from porla_tpu_torch.tools.bench import msm_inputs
     mesh = sharded.make_mesh([dev] * MESH_DP, tp=1)
     n_loc = MSM_N // mesh.dp
     total = {k: 0 for k in native.launches()}
@@ -2248,6 +2277,68 @@ def run_mesh_cluster(card) -> dict:
     return {r: rec["launches"] for r, rec in enumerate(recs)}
 
 
+# --- path (h): the reference's self-test epoch -------------------------------
+
+def epoch_summary(scheme, records, n=N_BLOCKS) -> dict:
+    """(h)'s record of one scheme's epoch (`run_protocol` with n + 1
+    updates): the updates' line (`merged`), then the amortized update over
+    write steps 1..n, the epoch-closing update, the mean and slowest update
+    per fold level (`tools.soak.epoch_stats`) and the seconds of every
+    audit that verified."""
+    from porla_tpu_torch.tools import soak
+    emit(merged(records, "update"))
+    times = [(r["write_step"], r["s"]) for r in records
+             if r["phase"] in ("update", "epoch_close")
+             and r["write_step"] <= n]
+    stats = soak.epoch_stats(times, n)
+    summary = {"path": "h", "scheme": scheme, "n": n,
+               "amortized_update_s": sum(s for _, s in times) / n,
+               "epoch_close_s": stats["epoch_close_s"][0],
+               "slowest_update_s_by_level": {
+                   lv: r["max_s"] for lv, r in stats["by_level"].items()},
+               "by_level": stats["by_level"],
+               "audit_s": [r["s"] for r in records
+                           if r["phase"] in ("audit", "resume_audit")]}
+    emit(summary)
+    return summary
+
+
+def run_bench_tool() -> dict:
+    """The bench tool (`tools/bench.py`) once as a subprocess, as a user
+    runs it: it must exit 0 and print bench.py's three metric lines, BN254
+    last, which are emitted again here. Returns its record (the lines and
+    its kernels' launches)."""
+    import tempfile
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    fd, out = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "porla_tpu_torch.tools.bench", "--out",
+             out], cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=600)
+        for line in (proc.stdout + proc.stderr).splitlines():
+            print(f"bench: {line}", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"the bench tool failed (rc "
+                                 f"{proc.returncode})")
+        with open(out) as f:
+            rec = json.load(f)
+    finally:
+        os.remove(out)
+    lines = [json.loads(line) for line in proc.stdout.splitlines()[-3:]]
+    names = ["icc_encode_coeffs_per_s", "msm_points_per_s_secp256k1",
+             "msm_points_per_s_bn254"]
+    if [r["metric"] for r in lines] != names or lines != rec["lines"]:
+        raise AssertionError(f"the bench tool's lines: {lines}")
+    for r in lines:
+        emit(r)
+    emit({"check": "bench", "card": rec["card"],
+          "launches": rec["launches"]})
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2324,7 +2415,7 @@ def main() -> int:
             if "count" not in line and "gauge" not in line:
                 print("trace", scheme, line, flush=True)
         check_protocol_launches(scheme, *runs[scheme][:2])
-    phases, total, k3_lanes, _ = runs["ipa"]
+    phases, total, protocol_shapes, _ = runs["ipa"]
     kzg_phases, kzg_total, _, _ = runs["kzg"]
     msm_kernels = ("pip_bucket", "bucket_fold", "point_butterfly_window")
 
@@ -2337,7 +2428,7 @@ def main() -> int:
                              f"{missing}")
     emit(check_msm_parts(dev, ops))
     # K3 at the widest butterfly the updates launched
-    widest = max(b for ph, b in k3_lanes if ph == "update")
+    widest = max(b for ph, b in protocol_shapes["k3"] if ph == "update")
     k3["update_fold"] = check_k3(dev, rng, ops, B=widest)
     emit(dict(check="point_butterfly update_fold", **{
         k: v for k, v in k3["update_fold"].items() if k != "name"}))
@@ -2372,55 +2463,13 @@ def main() -> int:
     # planes x n/2 lanes) and the finalize pass's alignment commitments (a
     # stripe of blocks x 128 lanes)
     ooc_shapes = ooc["d"][2]
-    k3["ooc"] = check_k3(dev, rng, ops, B=max(ooc_shapes["k3"]))
+    k3["ooc"] = check_k3(dev, rng, ops, B=max(b for _, b in ooc_shapes["k3"]))
     emit(dict(check="point_butterfly ooc", **{
         k: v for k, v in k3["ooc"].items() if k != "name"}))
-    widest = max(sh for sh in ooc_shapes["k4"] if sh[1])
-    k4["ooc"] = check_k4(dev, rng, ops, (("ooc_commit", *widest),))[0]
+    ooc_commit = max(sh for sh in ooc_shapes["k4"] if sh[1])
+    k4["ooc"] = check_k4(dev, rng, ops, (("ooc_commit", *ooc_commit),))[0]
     emit(dict(check="fixed_base ooc", **{
         k: v for k, v in k4["ooc"].items() if k != "name"}))
-    # K2, K4 and group_sum at every other shape the out-of-core runs
-    # launched that the checks above did not hold, on each run's curve:
-    # (d)'s audit MSM (its samples padded to 2048 slots), its CRebuild's
-    # MAC-plane scaling (2^14 GLV lanes) and (e)'s alignment commits over
-    # stripes of 8 blocks are shapes of no cached path
-    k2_by = {r["name"]: r for r in k2}
-    for scheme, cops, krows, fb_checked in (
-            ("ipa", ops, {**k2_by, "fixed_base": k4, "group_sum": gs},
-             FB_SHAPES), ("kzg", bn254(), bn, KZG_FB_SHAPES)):
-        seen = {name: set() for name in ("k2", "k4", "group_sum")}
-        for key, run in ooc.items():
-            if scheme == ("kzg" if "kzg" in key else "ipa"):
-                for name in seen:
-                    seen[name].update(run[2][name])
-        new_k2 = sorted(seen["k2"] - set(K2_SHAPES))
-        new_k4 = sorted(seen["k4"] - {sh[1:] for sh in fb_checked}
-                        - {widest})
-        new_gs = sorted(seen["group_sum"] - set(GS_SHAPES))
-        emit({"check": f"ooc shapes {scheme}", "k2": new_k2, "k4": new_k4,
-              "group_sum": new_gs})
-        checked = []
-        if new_k2:
-            for row in check_k2(dev, rng, cops, new_k2):
-                checked.append((row["name"], row, k2_shapes([row])))
-        if new_k4:
-            k4_rows = check_k4(
-                dev, rng, cops, [(f"ooc_{B}x{nout}", B, nout, ng, nbits)
-                                 for B, nout, ng, nbits in new_k4],
-                rand_points(rng, cops.curve, max(sh[2] for sh in new_k4)))
-            for row in k4_rows:
-                emit(dict(check=f"fixed_base {scheme} ooc",
-                          **{k: v for k, v in row.items() if k != "name"}))
-                checked.append(("fixed_base", row, k4_shapes([row])))
-        if new_gs:
-            row = check_group_sum(dev, rng, cops, new_gs,
-                                  krows["group_sum"]["add_ms"], max(new_gs))
-            checked.append(("group_sum", row, row["shapes"]))
-        for name, row, shapes in checked:
-            into = krows[name]
-            into["max_abs_err"] = max(into["max_abs_err"], row["max_abs_err"])
-            into.setdefault("ooc_shapes", {}).update(shapes)
-
     # (f) ICC erasure recovery: a level of 2^15 blocks, its folds on K1
     t0 = time.perf_counter()
     icc_total, k1["icc"] = run_icc(dev)
@@ -2451,6 +2500,81 @@ def main() -> int:
           "launches": {"encode": mesh_encode_total, "msm": mesh_msm_total,
                        **{f"cluster {r}": v for r, v in cluster.items()}}})
 
+    # (h) the reference's self-test epoch in each scheme (path (a)'s cycle
+    # with n + 1 updates, an audit after the n-th), each driven with the
+    # counts set to 0 just before it and read just after, K3 held at the
+    # widest butterfly its updates launched; then the bench tool as a user
+    # runs it
+    t0 = time.perf_counter()
+    epochs = {}
+    for scheme, cops, row in (("ipa", ops, k3),
+                              ("kzg", bn254(), bn["point_butterfly"])):
+        shutil.rmtree(store, ignore_errors=True)
+        try:
+            epochs[scheme] = run_protocol(
+                dev, store, scheme, n_updates=N_BLOCKS + 1,
+                audit_after=(N_BLOCKS,), path="h", quiet=("update",))
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
+        e_phases, e_total, e_shapes, _ = epochs[scheme]
+        check_protocol_launches(f"(h) {scheme}", e_phases, e_total)
+        epoch_summary(scheme, e_phases)
+        widest = max(b for ph, b in e_shapes["k3"]
+                     if ph in ("update", "epoch_close"))
+        row["epoch"] = check_k3(dev, rng, cops, B=widest)
+        emit(dict(check=f"point_butterfly epoch {scheme}", **{
+            k: v for k, v in row["epoch"].items() if k != "name"}))
+    bench = run_bench_tool()
+    emit({"phase": "epoch", "s": time.perf_counter() - t0,
+          "launches": {**{s: e[1] for s, e in epochs.items()},
+                       "bench": bench["launches"]}})
+
+    # K2, K4 and group_sum at every other shape the one-device protocol
+    # paths ((a), (b), (d), (e), (h)) launched that the checks above did not
+    # hold, on each path's curve: (d)'s audit MSM (its samples padded to
+    # 2048 slots), its CRebuild's MAC-plane scaling (2^14 GLV lanes), (e)'s
+    # alignment commits over stripes of 8 blocks and the epoch's complement
+    # replays (up to 1022 lanes at level 9) are shapes of no phase-2 check
+    k2_by = {r["name"]: r for r in k2}
+    path_runs = {**{f"{key}": run[2] for key, run in ooc.items()},
+                 **{f"a-b {s}": run[2] for s, run in runs.items()},
+                 **{f"h {s}": run[2] for s, run in epochs.items()}}
+    for scheme, cops, krows, fb_checked in (
+            ("ipa", ops, {**k2_by, "fixed_base": k4, "group_sum": gs},
+             FB_SHAPES), ("kzg", bn254(), bn, KZG_FB_SHAPES)):
+        seen = {name: set() for name in ("k2", "k4", "group_sum")}
+        for key, shapes in path_runs.items():
+            if scheme == ("kzg" if "kzg" in key else "ipa"):
+                for name in seen:
+                    seen[name].update(shapes[name])
+        new_k2 = sorted(seen["k2"] - set(K2_SHAPES))
+        new_k4 = sorted(seen["k4"] - {sh[1:] for sh in fb_checked}
+                        - {ooc_commit})
+        new_gs = sorted(seen["group_sum"] - set(GS_SHAPES))
+        emit({"check": f"path shapes {scheme}", "k2": new_k2, "k4": new_k4,
+              "group_sum": new_gs})
+        checked = []
+        if new_k2:
+            for row in check_k2(dev, rng, cops, new_k2):
+                checked.append((row["name"], row, k2_shapes([row])))
+        if new_k4:
+            k4_rows = check_k4(
+                dev, rng, cops, [(f"path_{B}x{nout}", B, nout, ng, nbits)
+                                 for B, nout, ng, nbits in new_k4],
+                rand_points(rng, cops.curve, max(sh[2] for sh in new_k4)))
+            for row in k4_rows:
+                emit(dict(check=f"fixed_base {scheme} path",
+                          **{k: v for k, v in row.items() if k != "name"}))
+                checked.append(("fixed_base", row, k4_shapes([row])))
+        if new_gs:
+            row = check_group_sum(dev, rng, cops, new_gs,
+                                  krows["group_sum"]["add_ms"], max(new_gs))
+            checked.append(("group_sum", row, row["shapes"]))
+        for name, row, shapes in checked:
+            into = krows[name]
+            into["max_abs_err"] = max(into["max_abs_err"], row["max_abs_err"])
+            into.setdefault("path_shapes", {}).update(shapes)
+
     # a row's ms, plain_ms and bound are at its secp256k1 shape (the IPA
     # path's); its BN254 numbers (the KZG path's) are under "bn254"
     rows = []
@@ -2471,6 +2595,12 @@ def main() -> int:
         per_phase["mesh encode"] = [mesh_encode_total[name]]
         per_phase["mesh msm"] = [mesh_msm_total[name]]
         per_phase["mesh cluster"] = [c[name] for c in cluster.values()]
+        for scheme, (e_phases, *_) in epochs.items():
+            for rec in e_phases:
+                key = f"epoch {scheme} {rec['phase']}"
+                per_phase[key] = [per_phase.get(key, [0])[0]
+                                  + rec["launches"][name]]
+        per_phase["bench"] = [bench["launches"][name]]
         for log, *_ in ooc.values():
             for rec in log.records:
                 per_phase.setdefault(f"{rec['path']} {rec['scheme']} "
@@ -2485,7 +2615,9 @@ def main() -> int:
             + sum(sum(r["launches"][name] for r in m_phases)
                   for m_phases, _ in mesh_runs.values())
             + mesh_encode_total[name] + mesh_msm_total[name]
-            + sum(c[name] for c in cluster.values()),
+            + sum(c[name] for c in cluster.values())
+            + sum(e[1][name] for e in epochs.values())
+            + bench["launches"][name],
             "max_abs_err": max(r["max_abs_err"],
                                b["max_abs_err"] if b else 0),
             "ms": r["ms"],
@@ -2494,13 +2626,13 @@ def main() -> int:
             "shape": r["shape"],
             "launches_per_phase": per_phase,
             **{k: r[k] for k in ("shapes", "update_fold", "ooc",
-                                 "ooc_shapes", "icc", "mesh_encode",
-                                 "depth_ms", "add_ms", "nb")
+                                 "path_shapes", "icc", "mesh_encode",
+                                 "epoch", "depth_ms", "add_ms", "nb")
                if k in r},
             **({"bn254": {k: b[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err", "shapes", "ooc_shapes", "lane", "depth_ms",
-                "add_ms")
+                "max_abs_err", "shapes", "path_shapes", "lane", "depth_ms",
+                "add_ms", "epoch")
                 if k in b}} if b else {}),
         })
     emit({"kernels": rows})

@@ -107,9 +107,14 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int,
     keys = [f"porla/devices/{r}" for r in range(num_processes)]
     store.wait(keys)
     claims = [json.loads(store.get(k)) for k in keys]
-    # every process has read every claim before any may fail on them (and
-    # process 0, which serves the store, exit)
+    # every process has read every claim before any may fail on them; and
+    # process 0, which serves the store, may fail (and exit) only once every
+    # other process has left that wait, which polls the store
     _wait_all(store, num_processes, "porla/claims", 600.0)
+    if process_id == 0:
+        _wait_all(store, num_processes, "porla/claims_left", 600.0)
+    else:
+        store.add("porla/claims_left", 1)
     if len({len(c[1]) for c in claims}) != 1:
         raise ValueError(f"processes hold different shard counts: {claims}")
     if backend == "nccl":

@@ -9,7 +9,8 @@ the CPU, each with two CPU shards.
   sharded Pippenger MSM over both processes' shards (16 bits, 64 points)
   equals the golden sum.
 - init_distributed with NCCL and two processes naming one card raises
-  before any NCCL call.
+  before any NCCL call, in both processes, also when process 0 (which
+  serves the run's store) comes to the claims' round last.
 - Slow tier: the whole epoch of porla_tpu_torch/tools/run_multihost.py
   (initialize, update, audit) in two processes at n = 8; the plain versions
   take about a minute a process.
@@ -102,6 +103,16 @@ def test_nccl_on_a_shared_card_raises(tmp_path):
         assert "raised: processes 0 and 1 share cuda:0" in out, out
 
 
+def test_refusal_waits_for_every_process(tmp_path):
+    """Process 0 serves the run's store. When it comes to the claims' round
+    last and process 1 polls that round slowly, process 0 may refuse the
+    claims, and exit, only once process 1 has seen the round end: both
+    refuse the shared card, and neither loses the store it is polling."""
+    outs = _workers("nccl_late", tmp_path)
+    for out in outs:
+        assert "raised: processes 0 and 1 share cuda:0" in out, out
+
+
 @pytest.mark.slow
 def test_two_process_protocol_epoch(tmp_path):
     port = _free_port()
@@ -149,7 +160,21 @@ def _worker(mode, rank, world, port, out) -> int:
     from porla_tpu_torch.parallel import multihost
     torch.set_num_threads(1)
     coord = f"localhost:{port}"
-    if mode == "nccl":
+    if mode == "nccl_late":
+        # process 0 comes to each round 0.5 s late; process 1 polls every 1 s
+        import time
+        import types
+        if rank == 0:
+            wait_all = multihost._wait_all
+
+            def late(*args, **kw):
+                time.sleep(0.5)
+                return wait_all(*args, **kw)
+            multihost._wait_all = late
+        else:
+            multihost.time = types.SimpleNamespace(
+                monotonic=time.monotonic, sleep=lambda s: time.sleep(1.0))
+    if mode.startswith("nccl"):
         try:
             multihost.init_distributed(coord, world, rank, "nccl",
                                        devices=["cuda:0"])
