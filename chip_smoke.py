@@ -105,9 +105,23 @@
    level and the audits are printed (`epoch_summary`).
    Then the bench tool (`tools/bench.py`) runs once as a subprocess and
    must print bench.py's three metric lines, BN254 last (printed again).
+9. Runs the reference's two-process deployment (path (i)): (i1) IPA and
+   (i2) KZG, a server process (`tools/demo_e2e.py --serve`, bound to
+   tcp://*:8888, the reference's port, which must be free) and a client
+   process (`--connect tcp://localhost:8888`, n = 1024, an audit, 4
+   updates, 2 audits) over the port's own ZMTP 3 wire: the client must
+   print "ALL CHECKS PASSED", the server its record at SIGTERM, both rc 0;
+   K1 4 times, all in the server at initialize; the client's transport
+   counters equal to the server's; each phase's seconds beside path
+   (a)'s, and the wire's seconds a request. (i3) resume across processes
+   (`run_resume_deploy`): a checkpoint written in this process served by
+   `--serve --resume`, the same client over a `ZmqClientTransport`: a
+   copy with a sampled codeword corrupted must have its audit refused, the
+   intact one an audit, an update and an audit verified.
    Last, K2, K4 and group_sum are held at every other shape that paths
    (a), (b), (d), (e) and (h) launched and phase 2 did not check, on each
-   path's curve (`LaunchShapes`; the `path shapes` lines).
+   path's curve (`LaunchShapes`; the `path shapes` lines). The script's
+   total seconds are printed before the kernels line.
 Any failed phase raises, so the script exits nonzero and prints no result.
 It exits nonzero when torch finds no CUDA device or the port's package is
 not beside it.
@@ -2339,7 +2353,248 @@ def run_bench_tool() -> dict:
     return rec
 
 
+# --- path (i): the reference's two-process deployment ----------------------
+
+DEPLOY_PORT = 8888      # the reference's SERVER_PORT (config.hpp:19)
+DEPLOY_ENDPOINT = f"tcp://localhost:{DEPLOY_PORT}"
+DEPLOY_UPDATES, DEPLOY_AUDITS = 4, 2
+
+
+def check_port_free(port: int = DEPLOY_PORT) -> None:
+    """Raises unless a server may bind `port` (as `zmtp.RepSocket` binds
+    it, with SO_REUSEADDR)."""
+    import socket
+    with socket.socket() as sk:
+        sk.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            sk.bind(("", port))
+        except OSError as e:
+            raise AssertionError(f"port {port} is taken: {e}") from e
+
+
+def demo(*argv) -> subprocess.Popen:
+    """A process of `porla_tpu_torch/tools/demo_e2e.py` on the card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen(
+        [sys.executable, "-m", "porla_tpu_torch.tools.demo_e2e",
+         "--device", "cuda", *argv], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def finish(proc, name: str, timeout: float, stop: bool = False,
+           want: str | None = None) -> dict:
+    """Waits for `proc` (SIGTERM first with `stop`), prints its lines, and
+    returns its last line's JSON record; raises unless it exited 0 (and
+    printed `want`)."""
+    import signal
+    if stop:
+        proc.send_signal(signal.SIGTERM)
+    out, _ = proc.communicate(timeout=timeout)
+    out = out.decode(errors="replace")
+    for line in out.splitlines():
+        print(f"{name}: {line}", flush=True)
+    if proc.returncode != 0 or (want is not None and want not in out):
+        raise AssertionError(f"{name} failed (rc {proc.returncode})")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def kill(*procs) -> None:
+    for p in procs:
+        if p is not None and p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def check_deploy_launches(what, server, client) -> None:
+    """K1 launched 4 times in the server process, all at initialize (its
+    CRebuild), and nowhere else; each kernel of the cycle (PROTOCOL_KERNELS)
+    launched by one of the two processes."""
+    reqs = server["requests"]
+    k1 = {kind: r["launches"]["ntt_stage"] for kind, r in reqs.items()}
+    if k1.get("initialize") != 4 or sum(k1.values()) != 4 or \
+            client["launches"]["ntt_stage"]:
+        raise AssertionError(f"{what}: K1 launches {k1} in the server, "
+                             f"{client['launches']['ntt_stage']} in the "
+                             f"client, not 4 at the server's initialize")
+    missing = [k for k in PROTOCOL_KERNELS
+               if not server["launches"][k] + client["launches"][k]]
+    if missing:
+        raise AssertionError(f"{what}: kernels not launched: {missing}")
+
+
+def wire_line(path, scheme, client, server, inproc, card) -> dict:
+    """The deployment's seconds per phase over the wire beside path (a)'s
+    in-process seconds of the same run, the wire's seconds a request (a
+    round trip less the server's handling of it), the bytes and round
+    trips (the client's transport counters, each equal to the server's own
+    count), and each process's launches."""
+    reqs = server["requests"]
+    counts = dict(client["transport"])
+    request_s = counts.pop("request_s")
+    got = {"round_trips": sum(r["calls"] for r in reqs.values()),
+           "bytes_sent": sum(r["bytes_received"] for r in reqs.values()),
+           "bytes_received": sum(r["bytes_sent"] for r in reqs.values())}
+    if got != counts:
+        raise AssertionError(f"{path} {scheme}: the client's transport "
+                             f"counters {counts} are not the server's {got}")
+    line = {"path": path, "scheme": scheme, "n": N_BLOCKS,
+            "wire_s": client["s"],
+            "inproc_s": {k: [r["s"] for r in inproc if r["phase"] == k]
+                         for k in ("initialize", "update", "audit")},
+            "server_s": {k: r["s"] for k, r in reqs.items()},
+            # a round trip's seconds less the server's handling of it: the
+            # wire (both processes' framing, the socket, the wake-ups)
+            "wire_overhead_s_per_request": {
+                k: (request_s[k] - r["s"]) / r["calls"]
+                for k, r in reqs.items()},
+            "transport": counts,
+            "server_requests": {k: {f: r[f] for f in (
+                "calls", "bytes_received", "bytes_sent")}
+                for k, r in reqs.items()},
+            "launches": {"server": server["launches"],
+                         "client": client["launches"]},
+            "card": card}
+    emit(line)
+    return line
+
+
+def run_deploy(scheme, store, inproc, card) -> dict:
+    """(i1) / (i2): the reference's deployment on the card, two processes
+    of tools/demo_e2e.py: a server bound to tcp://*:8888 and a client that
+    connects to it and runs initialize at n = 1024, an audit, 4 updates and
+    2 audits (every audit must verify: "ALL CHECKS PASSED"); then SIGTERM
+    ends the server, which prints its record and exits 0. Returns the
+    launches of each process (the server's by request kind)."""
+    check_port_free()
+    t0 = time.perf_counter()
+    server = client = None
+    try:
+        server = demo("--serve", "--scheme", scheme, "--store", store)
+        client = demo("--connect", DEPLOY_ENDPOINT, "--scheme", scheme,
+                      "--n", str(N_BLOCKS), "--updates", str(DEPLOY_UPDATES),
+                      "--audits", str(DEPLOY_AUDITS))
+        crec = finish(client, f"deploy {scheme} client", 300,
+                      want="ALL CHECKS PASSED")
+        srec = finish(server, f"deploy {scheme} server", 60, stop=True)
+    finally:
+        kill(client, server)
+    path = "i1" if scheme == "ipa" else "i2"
+    check_deploy_launches(f"({path})", srec, crec)
+    line = wire_line(path, scheme, crec, srec, inproc, card)
+    line["s"] = time.perf_counter() - t0
+    emit({"path": path, "phase": "deploy", "s": line["s"]})
+    return {**{f"{path} server {k}": r["launches"]
+               for k, r in srec["requests"].items()},
+            f"{path} client": crec["launches"]}
+
+
+def corrupt_checkpoint_codeword(store, seed: bytes) -> dict:
+    """Flip one bit in the q residue of a top-level codeword of the
+    checkpoint in `store` (checkpoint.npz, as `save_checkpoint` wrote it)
+    that the audit of `seed` samples with a nonzero coefficient, the file
+    counterpart of `corrupt_sampled_codeword`. Returns what was flipped."""
+    import numpy as np
+    from porla_tpu_torch.ntt.engine import NttContext
+    from porla_tpu_torch.protocol import auditing
+    with open(os.path.join(store, "checkpoint.json")) as f:
+        meta = json.load(f)
+    height = len(meta["levels"])
+    top = height - 1
+    mod_q = NttContext(meta["num_blocks"], meta["scheme"]).mod_q
+    plan = auditing.build_audit_plan(seed, meta["write_step"],
+                                     meta["num_blocks"], height)
+    hit = next(s for s in plan.samples
+               if s.level == top and s.coeff % mod_q.n)
+    key = f"L{top}{'x' if hit.is_x else 'y'}_dq"
+    path = os.path.join(store, "checkpoint.npz")
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files}
+    arrays[key][hit.index, 0, 0] ^= 1
+    np.savez(path, **arrays)
+    return {"array": key, "index": hit.index}
+
+
+def run_resume_deploy(dev, store, card) -> dict:
+    """(i3): resume across processes. In this process, a client and a
+    server on the card: initialize at n = 1024, 2 updates, the server's
+    checkpoint; the server is dropped. A copy of the store whose checkpoint
+    has one codeword flipped that a chosen audit samples is served by
+    `demo_e2e.py --serve --resume`, and the same client, now over a
+    `ZmqClientTransport`, must refuse that audit; then a server resumed
+    from the intact checkpoint must answer an audit, an update and an
+    audit that verify. Both servers end on SIGTERM with rc 0. Returns the
+    launches: this process's per phase, each server's."""
+    import numpy as np
+    from porla_tpu_torch.config import PorlaConfig
+    from porla_tpu_torch.protocol.client import PorlaClient
+    from porla_tpu_torch.protocol.server import PorlaServer
+    from porla_tpu_torch.protocol.transport import (InProcTransport,
+                                                    ZmqClientTransport)
+    rng = np.random.default_rng(SEED + 3)
+    seed = lambda: rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    cfg = PorlaConfig(scheme="ipa", storage_dir=store)
+    server = PorlaServer(cfg, device=dev)
+    client = PorlaClient(cfg, InProcTransport(server), data_seed=seed(),
+                         device=dev)
+    log = PhaseLog("i3", "ipa", dev)
+    log("initialize", lambda: client.initialize(N_BLOCKS))
+    for _ in range(2):
+        log("update", lambda: client.update(client.write_step % N_BLOCKS + 1),
+            write_step=client.write_step + 1)
+    log("checkpoint", server.save_checkpoint)
+    client.transport = server = None
+    bad_store = store + "_corrupt"
+    shutil.rmtree(bad_store, ignore_errors=True)
+    shutil.copytree(store, bad_store)
+    audit_seed = seed()
+    flipped = corrupt_checkpoint_codeword(bad_store, audit_seed)
+    records = {}
+    try:
+        for name, where, phases in (
+                ("refused", bad_store, [("audit_corrupted", refuse(
+                    client, audit_seed, "a corrupted checkpoint codeword"))]),
+                ("resumed", store, [
+                    ("audit", lambda: client.audit(seed=seed())),
+                    ("update", lambda: client.update(
+                        client.write_step % N_BLOCKS + 1)),
+                    ("audit", lambda: client.audit(seed=seed()))])):
+            check_port_free()
+            proc = demo("--serve", "--resume", "--store", where)
+            try:
+                client.transport = ZmqClientTransport(DEPLOY_ENDPOINT,
+                                                      timeout_s=120)
+                for phase, fn in phases:
+                    log(f"wire_{phase}", fn)
+                client.transport.close()
+                records[name] = finish(proc, f"resume {name} server", 60,
+                                       stop=True)
+            finally:
+                kill(proc)
+            if records[name]["mode"] != "resumed":
+                raise AssertionError(f"(i3) the {name} server did not "
+                                     f"resume")
+    finally:
+        shutil.rmtree(bad_store, ignore_errors=True)
+    emit({"path": "i3", "phase": "resume_deploy", "flipped": flipped,
+          "s": time.perf_counter() - t0,
+          "server_requests": {name: rec["requests"]
+                              for name, rec in records.items()},
+          "card": card})
+    out = {}
+    for r in log.records:
+        acc = out.setdefault(f"i3 {r['phase']}", dict.fromkeys(r["launches"],
+                                                               0))
+        for k, v in r["launches"].items():
+            acc[k] += v
+    for name, rec in records.items():
+        out[f"i3 {name} server"] = rec["launches"]
+    return out
+
+
 def main() -> int:
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
@@ -2529,6 +2784,25 @@ def main() -> int:
           "launches": {**{s: e[1] for s, e in epochs.items()},
                        "bench": bench["launches"]}})
 
+    # (i) the reference's two-process deployment: (i1) IPA and (i2) KZG, a
+    # server and a client process of tools/demo_e2e.py over
+    # tcp://localhost:8888, each phase beside path (a)'s in-process seconds;
+    # (i3) a checkpoint resumed across processes, and a corrupted one refused
+    t0 = time.perf_counter()
+    deploy = {}
+    for scheme, inproc in (("ipa", phases), ("kzg", kzg_phases)):
+        shutil.rmtree(store, ignore_errors=True)
+        try:
+            deploy.update(run_deploy(scheme, store, inproc, card))
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
+    try:
+        deploy.update(run_resume_deploy(dev, store, card))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    emit({"path": "i", "phase": "deploy", "s": time.perf_counter() - t0,
+          "launches": deploy})
+
     # K2, K4 and group_sum at every other shape the one-device protocol
     # paths ((a), (b), (d), (e), (h)) launched that the checks above did not
     # hold, on each path's curve: (d)'s audit MSM (its samples padded to
@@ -2601,6 +2875,8 @@ def main() -> int:
                 per_phase[key] = [per_phase.get(key, [0])[0]
                                   + rec["launches"][name]]
         per_phase["bench"] = [bench["launches"][name]]
+        for key, launched in deploy.items():
+            per_phase[f"({key[:2]}) {key[3:]}"] = [launched[name]]
         for log, *_ in ooc.values():
             for rec in log.records:
                 per_phase.setdefault(f"{rec['path']} {rec['scheme']} "
@@ -2617,7 +2893,8 @@ def main() -> int:
             + mesh_encode_total[name] + mesh_msm_total[name]
             + sum(c[name] for c in cluster.values())
             + sum(e[1][name] for e in epochs.values())
-            + bench["launches"][name],
+            + bench["launches"][name]
+            + sum(launched[name] for launched in deploy.values()),
             "max_abs_err": max(r["max_abs_err"],
                                b["max_abs_err"] if b else 0),
             "ms": r["ms"],
@@ -2635,6 +2912,7 @@ def main() -> int:
                 "add_ms", "epoch")
                 if k in b}} if b else {}),
         })
+    emit({"script_s": time.perf_counter() - script_t0})
     emit({"kernels": rows})
     print(native.card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
