@@ -118,6 +118,15 @@
    `--serve --resume`, the same client over a `ZmqClientTransport`: a
    copy with a sampled codeword corrupted must have its audit refused, the
    intact one an audit, an update and an audit verified.
+10. Runs the out-of-core bench tool as a user runs it (path (j),
+   `run_bench_ooc`): `python -m porla_tpu_torch.tools.bench_ooc` as a
+   subprocess in each scheme, the two side by side, at n = 2^11 blocks in
+   stripes of 256 (two passes of stages over the files a side) with
+   `--check`, each in a fresh store removed afterwards: it must exit 0 with its check exact in all
+   three parts (the streamed codeword files against K1's encode of U, the
+   first and last stripes' alignment points against the plain K4, sampled
+   MAC codewords against the golden model), and its phases, memory and
+   disk breakdown are printed (`bench_ooc` lines).
    Last, K2, K4 and group_sum are held at every other shape that paths
    (a), (b), (d), (e) and (h) launched and phase 2 did not check, on each
    path's curve (`LaunchShapes`; the `path shapes` lines). The script's
@@ -1623,35 +1632,6 @@ OOC_KERNELS = ("scalar_mul_window", "scalar_mul_glv", "point_butterfly",
                "fixed_base", "group_sum")
 
 
-class RssPeak:
-    """The peak resident set of this process while it runs: sampled every
-    10 ms from /proc/self/statm by a thread (the card's machine reports no
-    VmHWM)."""
-
-    def __enter__(self):
-        import threading
-        self.page = os.sysconf("SC_PAGE_SIZE")
-        self.peak = self._rss()
-        self.stop = threading.Event()
-        self.thread = threading.Thread(target=self._run, daemon=True)
-        self.thread.start()
-        return self
-
-    def _rss(self) -> int:
-        with open("/proc/self/statm") as f:
-            return int(f.read().split()[1]) * self.page
-
-    def _run(self):
-        while not self.stop.wait(0.01):
-            self.peak = max(self.peak, self._rss())
-
-    def __exit__(self, *exc):
-        self.stop.set()
-        self.thread.join(timeout=5)
-        self.peak = max(self.peak, self._rss())
-        self.mib = self.peak / 2 ** 20
-
-
 def store_io(store_dir, n=OOC_N, record=8192):
     """The native runtime's batched file IO on this host's disk at (d)'s
     staging shape (n files of one 8 KiB staging record), on 8 and 32
@@ -1739,6 +1719,7 @@ def run_ooc(dev, store_dir, scheme, n, updates, audit_after, **cfg_kw):
     from porla_tpu_torch.protocol.client import PorlaClient
     from porla_tpu_torch.protocol.server import PorlaServer
     from porla_tpu_torch.protocol.transport import InProcTransport
+    from porla_tpu_torch.tools.bench_ooc import RssSampler
 
     rng = np.random.default_rng(SEED + 2)
     seed = lambda: rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
@@ -1756,10 +1737,10 @@ def run_ooc(dev, store_dir, scheme, n, updates, audit_after, **cfg_kw):
     with recorder:
         native.reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
-        with RssPeak() as rss:
+        with RssSampler() as rss:
             log("initialize", lambda: client.initialize(n))
         memory = {"path": path, "scheme": scheme, "phase": "initialize",
-                  "host_rss_peak_mib": rss.mib,
+                  "host_rss_peak_mib": rss.peak_mib,
                   "cuda_max_allocated_mib":
                       torch.cuda.max_memory_allocated(dev) / 2 ** 20}
         emit(memory)
@@ -2593,6 +2574,87 @@ def run_resume_deploy(dev, store, card) -> dict:
     return out
 
 
+# --- path (j): the out-of-core bench tool as a user runs it ----------------
+
+BENCH_OOC_N = 1 << 11      # two passes of stages a side at stripes of 256
+BENCH_OOC_STRIPE = 256
+
+
+def run_bench_ooc(store) -> dict:
+    """The out-of-core bench tool (`tools/bench_ooc.py`) as a user runs it,
+    one subprocess a scheme, IPA and KZG side by side: n = 2^11 blocks in
+    stripes of 256 (two passes of stages over the files a side),
+    `--check`, each in its own fresh store (`store` + the scheme), removed
+    afterwards. Each must exit 0 with a record whose check is exact in all
+    three parts (the data plane against K1 block by block, the first and
+    last stripes' alignment points against the plain K4, 64 MAC codewords
+    a plane against t_i * G); a `bench_ooc` line prints its phases and its
+    memory and disk breakdown. Returns {scheme: the launches of its
+    CRebuild and its check}."""
+    import tempfile
+    from porla_tpu_torch.protocol import stream
+    if len(stream.stage_passes(BENCH_OOC_N, BENCH_OOC_STRIPE)) != 2:
+        raise AssertionError("path (j) no longer streams in two passes")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    runs = {}
+    t0 = time.perf_counter()
+    try:
+        for scheme in ("ipa", "kzg"):
+            root = f"{store}_{scheme}"
+            shutil.rmtree(root, ignore_errors=True)
+            fd, out = tempfile.mkstemp(suffix=".json")
+            os.close(fd)
+            runs[scheme] = (root, out, subprocess.Popen(
+                [sys.executable, "-m", "porla_tpu_torch.tools.bench_ooc",
+                 "--n", str(BENCH_OOC_N), "--stripe", str(BENCH_OOC_STRIPE),
+                 "--scheme", scheme, "--check", "--store", root, "--out",
+                 out], cwd=HERE, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        recs = {}
+        for scheme, (_, out, proc) in runs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            for line in stdout.splitlines()[:-1] + stderr.splitlines():
+                print(f"bench_ooc {scheme}: {line}", flush=True)
+            if proc.returncode != 0:
+                raise AssertionError(f"the bench_ooc tool failed in {scheme} "
+                                     f"(rc {proc.returncode})")
+            with open(out) as f:
+                recs[scheme] = rec = json.load(f)
+            if json.loads(stdout.splitlines()[-1]) != rec:
+                raise AssertionError("bench_ooc's last line is not its record")
+            recs[scheme]["s"] = time.perf_counter() - t0
+    finally:
+        for root, out, proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            os.remove(out)
+            shutil.rmtree(root, ignore_errors=True)
+    launched = {}
+    for scheme, rec in recs.items():
+        if rec["check"] != {"data": "exact", "align": "exact",
+                            "mac": "exact"}:
+            raise AssertionError(f"bench_ooc {scheme}: {rec['check']}")
+        mem, disk = rec["memory"], rec["disk"]
+        emit({"bench_ooc": scheme, "n": rec["n"],
+              "stripe_blocks": rec["stripe_blocks"], "s": rec["s"],
+              "seed_s": rec["seed_s"], "phases_s": rec["phases_s"],
+              "total_s": rec["total_s"], "check": rec["check"],
+              "check_s": rec["check_detail"]["check_s"],
+              "rss_mib": mem["rss_mib"], "rss_peak_mib": mem["rss_peak_mib"],
+              "cuda_max_allocated_bytes": mem["cuda_max_allocated_bytes"],
+              "pinned_buffer_bytes": mem["pinned_buffer_bytes"],
+              "disk_at_peak_bytes": disk["at_peak"]["total_bytes"],
+              "fs_used_delta_peak_bytes": disk["fs_used_delta_peak_bytes"],
+              "filesystem": disk["filesystem"]["fstype"],
+              "launches": rec["launches"],
+              "check_launches": rec["check_detail"]["launches"]})
+        launched[f"{scheme} crebuild"] = rec["launches"]
+        launched[f"{scheme} check"] = rec["check_detail"]["launches"]
+    return launched
+
+
 def main() -> int:
     script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2803,6 +2865,13 @@ def main() -> int:
     emit({"path": "i", "phase": "deploy", "s": time.perf_counter() - t0,
           "launches": deploy})
 
+    # (j) the out-of-core bench tool as a user runs it, both schemes with
+    # --check, each in a fresh store
+    t0 = time.perf_counter()
+    ooc_tool = run_bench_ooc(store)
+    emit({"path": "j", "phase": "bench_ooc", "s": time.perf_counter() - t0,
+          "launches": ooc_tool})
+
     # K2, K4 and group_sum at every other shape the one-device protocol
     # paths ((a), (b), (d), (e), (h)) launched that the checks above did not
     # hold, on each path's curve: (d)'s audit MSM (its samples padded to
@@ -2877,6 +2946,8 @@ def main() -> int:
         per_phase["bench"] = [bench["launches"][name]]
         for key, launched in deploy.items():
             per_phase[f"({key[:2]}) {key[3:]}"] = [launched[name]]
+        for key, launched in ooc_tool.items():
+            per_phase[f"(j) {key}"] = [launched[name]]
         for log, *_ in ooc.values():
             for rec in log.records:
                 per_phase.setdefault(f"{rec['path']} {rec['scheme']} "
@@ -2894,7 +2965,8 @@ def main() -> int:
             + sum(c[name] for c in cluster.values())
             + sum(e[1][name] for e in epochs.values())
             + bench["launches"][name]
-            + sum(launched[name] for launched in deploy.values()),
+            + sum(launched[name] for launched in deploy.values())
+            + sum(launched[name] for launched in ooc_tool.values()),
             "max_abs_err": max(r["max_abs_err"],
                                b["max_abs_err"] if b else 0),
             "ms": r["ms"],

@@ -63,6 +63,12 @@ class BlockStore:
             self._pinned = pinned
         return self._host[:nbytes]
 
+    @property
+    def pinned_bytes(self) -> int:
+        """The bytes of the page-locked host buffer (0 until a card's copy
+        made one): it grows to the largest batch of files moved at once."""
+        return self._host.numel() if self._pinned else 0
+
     def _read_limbs(self, paths: list[str], record_size: int,
                     device) -> torch.Tensor:
         """The files' records as (len(paths), NUM_CHUNKS, record_size / 64

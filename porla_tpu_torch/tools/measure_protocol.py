@@ -7,15 +7,17 @@ Initializes a database, warms one update (continuing the round-robin
 rotation) and an audit, then runs a window of `--updates` updates, whose
 folds grow deeper, and `--audits` audits with the spans of `utils/trace.py`
 on, and prints the initialize seconds, the updates' mean, fastest and
-slowest seconds, the audits' mean and the span table. The profiling
-companion of the self-test meter (`tools/soak.py`). The entry points run on
-the card and raise without one; `--device cpu` runs the plain versions
-(use a small `--n`).
+slowest seconds, the audits' mean, each phase's kernel launches
+(initialize, the warm update and audit, the updates, the audits) and the
+span table. The profiling companion of the self-test meter
+(`tools/soak.py`). The entry points run on the card and raise without
+one; `--device cpu` runs the plain versions (use a small `--n`).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import tempfile
 import time
 
@@ -35,24 +37,33 @@ def main(argv=None) -> dict:
 
     dev = native.resolve_device(args.device)
     store = tempfile.mkdtemp(prefix="porla_meas_")
+    launches = {}
+    native.reset_launches()
     client, _, t_init = open_pair(args.scheme, args.n, store, dev)
+    launches["initialize"] = native.launches()
     print(f"initialized n={args.n} in {t_init:.3f}s", flush=True)
 
+    native.reset_launches()
     next_update(client)
     client.audit()
+    launches["warm"] = native.launches()
 
     trace.reset()
     trace.enable()
     try:
         upd, aud = [], []
+        native.reset_launches()
         for _ in range(args.updates):
             t0 = time.perf_counter()
             next_update(client)
             upd.append(time.perf_counter() - t0)
+        launches["updates"] = native.launches()
+        native.reset_launches()
         for _ in range(args.audits):
             t0 = time.perf_counter()
             client.audit()
             aud.append(time.perf_counter() - t0)
+        launches["audits"] = native.launches()
     finally:
         trace.enable(False)
 
@@ -61,8 +72,12 @@ def main(argv=None) -> dict:
               f"min {min(upd):.3f}s max {max(upd):.3f}s")
     if aud:
         print(f"audits:  mean {sum(aud) / len(aud):.3f}s")
+    for phase, counts in launches.items():
+        print(f"launches {phase}: "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}")
     print(trace.report())
-    return {"init_s": t_init, "update_s": upd, "audit_s": aud}
+    return {"init_s": t_init, "update_s": upd, "audit_s": aud,
+            "launches": launches}
 
 
 if __name__ == "__main__":

@@ -20,7 +20,10 @@ programmatically via `enable()`.
 GPU caveat: CUDA launches are asynchronous — a span around a launch
 measures enqueue unless the caller synchronizes or copies a result to
 the host. Protocol call sites wrap host-visible units of work (which end
-in such copies), so spans reflect real elapsed time.
+in such copies), so spans reflect real elapsed time. A span that wraps
+launches alone (`point_scale`, `point_butterfly`) times its card work
+only under `enable(sync=...)`, which waits for the card before each span's
+clock stops.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from dataclasses import dataclass, field
 
 _lock = threading.Lock()
 _enabled = os.environ.get("PORLA_TRACE") == "1"
+_sync = None                     # called before a span's clock stops
 _stack: contextvars.ContextVar[tuple[str, ...]] = contextvars.ContextVar(
     "porla_trace_stack", default=())
 
@@ -43,9 +47,13 @@ _counters: dict[str, float] = {}
 _gauges: dict[str, float] = {}
 
 
-def enable(on: bool = True) -> None:
-    global _enabled
+def enable(on: bool = True, sync=None) -> None:
+    """Turn the spans on or off. `sync` (e.g. `torch.cuda.synchronize`)
+    runs at the end of every span, before its clock stops, so that a span
+    covers the card work it launched."""
+    global _enabled, _sync
     _enabled = on
+    _sync = sync if on else None
 
 
 def enabled() -> bool:
@@ -72,6 +80,8 @@ def span(name: str, **attrs):
     try:
         yield
     finally:
+        if _sync is not None:
+            _sync()
         dt = time.perf_counter() - t0
         _stack.reset(token)
         rec = {"path": "/".join(path), "name": name, "depth": len(parent),
@@ -80,6 +90,12 @@ def span(name: str, **attrs):
             rec["attrs"] = attrs
         with _lock:
             _spans.append(rec)
+
+
+def spans() -> list[dict]:
+    """The finished spans in the order they ended (copies)."""
+    with _lock:
+        return [dict(s) for s in _spans]
 
 
 def count(name: str, n: float = 1) -> None:

@@ -4,7 +4,8 @@ names, BN254 last, vs_baseline null off the card; the KAT tool's checks
 all recorded as passing, and a check made to fail recorded as failing with
 a nonzero exit; measure_protocol's summaries; no tool imports jax or the
 JAX package; each raises when asked for a card torch cannot find. (The
-soak tool runs in test_torch_epoch_kzg.py.)"""
+soak tool runs in test_torch_epoch_kzg.py, bench_ooc in
+test_torch_bench_ooc.py.)"""
 
 import json
 import os
@@ -14,12 +15,13 @@ import sys
 import pytest
 import torch
 
-from porla_tpu_torch.tools import bench, kat_onchip, measure_protocol, soak
+from porla_tpu_torch.tools import (bench, bench_ooc, kat_onchip,
+                                   measure_protocol, soak)
 
 torch.set_num_threads(1)     # small tensors; xdist runs files side by side
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TOOLS = ("bench", "kat_onchip", "measure_protocol", "soak")
+TOOLS = ("bench", "bench_ooc", "kat_onchip", "measure_protocol", "soak")
 
 
 def test_bench_lines(monkeypatch, capsys):
@@ -83,6 +85,10 @@ def test_measure_protocol_summaries(capsys):
     assert "updates: mean" in out and "audits:  mean" in out
     assert "client.update/server.update" in out
     assert len(res["update_s"]) == 2 and len(res["audit_s"]) == 1
+    # each phase's launches (none on the CPU: the plain versions)
+    assert list(res["launches"]) == ["initialize", "warm", "updates",
+                                     "audits"]
+    assert "launches initialize: {}" in out
 
 
 def test_tools_import_neither_jax_nor_the_jax_package():
@@ -98,7 +104,8 @@ def test_tools_import_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("tool", TOOLS)
 def test_tool_raises_without_a_card(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    main = {"bench": bench.main, "kat_onchip": kat_onchip.main,
+    main = {"bench": bench.main, "bench_ooc": bench_ooc.main,
+            "kat_onchip": kat_onchip.main,
             "measure_protocol": measure_protocol.main,
             "soak": soak.main}[tool]
     with pytest.raises(RuntimeError, match="no CUDA device"):
