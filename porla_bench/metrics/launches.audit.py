@@ -1,0 +1,9 @@
+"""launches.audit: launches of the port's kernels (the sum of
+`native.KERNELS[*].launches`) per audit."""
+
+
+def read(run):
+    ops = [op for op in run.ops if op["kind"] == "audit" and op["ok"]]
+    if not ops:
+        return None
+    return sum(op["launches"] for op in ops) / len(ops)
