@@ -2076,7 +2076,7 @@ def run_mesh_protocol(dev, store, runs, card) -> dict:
             trace.enable(False)
             shutil.rmtree(store, ignore_errors=True)
         for line in trace.report().splitlines():
-            if "count" not in line and "gauge" not in line:
+            if "count" not in line:
                 print("trace mesh", scheme, line, flush=True)
         n_loc = N_BLOCKS // mesh.dp
         init_k1 = 4 * mesh_encode_launches(N_BLOCKS, mesh.dp)
@@ -2729,7 +2729,7 @@ def main() -> int:
         # host-clock spans of the protocol run (a span ends where its result
         # reaches the host, so it covers the card's work it waited for)
         for line in trace.report().splitlines():
-            if "count" not in line and "gauge" not in line:
+            if "count" not in line:
                 print("trace", scheme, line, flush=True)
         check_protocol_launches(scheme, *runs[scheme][:2])
     phases, total, protocol_shapes, _ = runs["ipa"]
@@ -2773,7 +2773,7 @@ def main() -> int:
             shutil.rmtree(store, ignore_errors=True)
         emit({"phase": f"ooc {key}", "launches": ooc[key][1]})
         for line in trace.report().splitlines():
-            if "count" not in line and "gauge" not in line and (
+            if "count" not in line and (
                     key == "d" or "stream." in line or "crebuild" in line):
                 print("trace ooc", key, line, flush=True)
     # K3 and K4 at (d)'s widest launches: the CRebuild's MAC stages (2

@@ -87,10 +87,11 @@ def prove(a: list[int], b: list[int], gens: JacPoint, u) -> bytes:
     ip = sum(x * y for x, y in zip(a, b)) % Q
     proof += ip.to_bytes(32, "little")
 
-    sha = Sha256()
-    sha.write(_INIT_STR)
-    sha.write(bytes(proof[:32]))
-    random_str = sha.finalize()
+    with trace.span("ipa.transcript"):
+        sha = Sha256()
+        sha.write(_INIT_STR)
+        sha.write(bytes(proof[:32]))
+        random_str = sha.finalize()
 
     x_values = [1] * NUM_CHUNKS
 
@@ -100,41 +101,47 @@ def prove(a: list[int], b: list[int], gens: JacPoint, u) -> bytes:
         x = _hash_mod_q(random_str)
         inv_x = pow(x, -1, Q)
 
-        cL = sum(a[i] * b[half + i] for i in range(half)) % Q
-        cR = sum(a[half + i] * b[i] for i in range(half)) % Q
+        with trace.span("ipa.scalars", lanes=2 * half):
+            cL = sum(a[i] * b[half + i] for i in range(half)) % Q
+            cR = sum(a[half + i] * b[i] for i in range(half)) % Q
 
-        # L: scalars on odd half-blocks (Server.hpp:2337-2349); R: even
-        # half-blocks (Server.hpp:2387-2399). R's scalars depend only on
-        # x/inv_x — not on L's transcript bytes — so both MSMs run as ONE
-        # batched device call per round.
-        scal_l = {}
-        for i in range(k):
-            pos = (i << 1) + 1
-            for qi, j in enumerate(range(pos * half, (pos + 1) * half)):
-                scal_l[j] = (a[qi] * x_values[j]) % Q
-                x_values[j] = (x_values[j] * x) % Q
-        scal_r = {}
-        for i in range(k):
-            pos = i << 1
-            for qi, j in enumerate(range(pos * half, (pos + 1) * half)):
-                scal_r[j] = (a[half + qi] * x_values[j]) % Q
-                x_values[j] = (x_values[j] * inv_x) % Q
+            # L: scalars on odd half-blocks (Server.hpp:2337-2349); R: even
+            # half-blocks (Server.hpp:2387-2399). R's scalars depend only on
+            # x/inv_x — not on L's transcript bytes — so both MSMs run as
+            # ONE batched device call per round.
+            scal_l = {}
+            for i in range(k):
+                pos = (i << 1) + 1
+                for qi, j in enumerate(range(pos * half, (pos + 1) * half)):
+                    scal_l[j] = (a[qi] * x_values[j]) % Q
+                    x_values[j] = (x_values[j] * x) % Q
+            scal_r = {}
+            for i in range(k):
+                pos = i << 1
+                for qi, j in enumerate(range(pos * half, (pos + 1) * half)):
+                    scal_r[j] = (a[half + qi] * x_values[j]) % Q
+                    x_values[j] = (x_values[j] * inv_x) % Q
+
+            a = [(a[i] * x + a[i + half] * inv_x) % Q for i in range(half)]
+            b = [(b[i] * inv_x + b[i + half] * x) % Q for i in range(half)]
         msm_l, msm_r = _msm_gens2(gens, scal_l, scal_r)
 
-        L = ecc.add(cv, msm_l, ecc.mul(cv, u, cL))
-        ser = ecc.secp_serialize_compressed(L)
-        proof += ser
-        sha.write(ser)
-        random_str = sha.finalize()
+        # neither point depends on the other's transcript bytes
+        with trace.span("ecc.host"):
+            L = ecc.add(cv, msm_l, ecc.mul(cv, u, cL))
+            R = ecc.add(cv, msm_r, ecc.mul(cv, u, cR))
 
-        R = ecc.add(cv, msm_r, ecc.mul(cv, u, cR))
-        ser = ecc.secp_serialize_compressed(R)
-        proof += ser
-        sha.write(ser)
-        random_str = sha.finalize()
+        with trace.span("ipa.transcript"):
+            ser = ecc.secp_serialize_compressed(L)
+            proof += ser
+            sha.write(ser)
+            random_str = sha.finalize()
 
-        a = [(a[i] * x + a[i + half] * inv_x) % Q for i in range(half)]
-        b = [(b[i] * inv_x + b[i + half] * x) % Q for i in range(half)]
+            ser = ecc.secp_serialize_compressed(R)
+            proof += ser
+            sha.write(ser)
+            random_str = sha.finalize()
+
         half >>= 1
         k <<= 1
 
@@ -151,16 +158,23 @@ class IpaVerificationError(AssertionError):
 def verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
     """Raises IpaVerificationError on failure (the reference CHECK-aborts,
     Client.hpp:1628). `commitment` is the affine commitment point."""
+    with trace.span("ipa.verify", bytes=len(proof)):
+        _verify(commitment, proof, gens, u)
+
+
+def _verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
     cv = ecc.SECP256K1
     off = 0
     c = int.from_bytes(proof[off:off + 32], "little")
     off += 32
-    P_acc = ecc.add(cv, commitment, ecc.mul(cv, u, c))
+    with trace.span("ecc.host"):
+        P_acc = ecc.add(cv, commitment, ecc.mul(cv, u, c))
 
-    sha = Sha256()
-    sha.write(_INIT_STR)
-    sha.write(proof[:32])
-    random_str = sha.finalize()
+    with trace.span("ipa.transcript"):
+        sha = Sha256()
+        sha.write(_INIT_STR)
+        sha.write(proof[:32])
+        random_str = sha.finalize()
 
     x_values = [1] * NUM_CHUNKS
 
@@ -181,17 +195,19 @@ def verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
         x2 = (x * x) % Q
         inv_x2 = pow(x2, -1, Q)
 
-        L = ecc.secp_parse_compressed(proof[off:off + 33])
-        sha.write(proof[off:off + 33])
-        random_str = sha.finalize()
-        off += 33
-        R = ecc.secp_parse_compressed(proof[off:off + 33])
-        sha.write(proof[off:off + 33])
-        random_str = sha.finalize()
-        off += 33
+        with trace.span("ipa.transcript"):
+            L = ecc.secp_parse_compressed(proof[off:off + 33])
+            sha.write(proof[off:off + 33])
+            random_str = sha.finalize()
+            off += 33
+            R = ecc.secp_parse_compressed(proof[off:off + 33])
+            sha.write(proof[off:off + 33])
+            random_str = sha.finalize()
+            off += 33
 
-        P_acc = ecc.add(cv, P_acc, ecc.mul(cv, L, x2))
-        P_acc = ecc.add(cv, P_acc, ecc.mul(cv, R, inv_x2))
+        with trace.span("ecc.host"):
+            P_acc = ecc.add(cv, P_acc, ecc.mul(cv, L, x2))
+            P_acc = ecc.add(cv, P_acc, ecc.mul(cv, R, inv_x2))
         half >>= 1
         k <<= 1
 
@@ -211,7 +227,9 @@ def verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
     for i in range(NUM_CHUNKS >> 1):
         pos = (i << 1) + 1
         scal[pos] = (a[1] * x_values[pos]) % Q
-    P = ecc.add(cv, ecc.mul(cv, u, ab), _msm_gens(gens, scal))
+    msm = _msm_gens(gens, scal)
+    with trace.span("ecc.host"):
+        P = ecc.add(cv, ecc.mul(cv, u, ab), msm)
 
     if P_acc != P:
         raise IpaVerificationError("inner-product argument check failed")

@@ -214,11 +214,14 @@ class PorlaClient:
         """delta_i = h^PRF(level, i, ws) - folded_i for i in [0, 2^(l+1))
         (Client.hpp:256-306 / :584-614)."""
         l = 1 << level
-        fresh = self.complement_points(
-            [(level, i, self.write_step) for i in range(2 * l)])
-        folded = cat([folded_x, folded_y])
-        delta = self.ops.add(fresh, self.ops.neg(folded))
-        return points_io.points_to_bytes(delta, self.ops)
+        with trace.span("client.deltas", points=2 * l, level=level):
+            fresh = self.complement_points(
+                [(level, i, self.write_step) for i in range(2 * l)])
+            folded = cat([folded_x, folded_y])
+            with trace.span("point_add", points=2 * l):
+                delta = self.ops.add(fresh, self.ops.neg(folded))
+        with trace.span("client.serialize", points=2 * l):
+            return points_io.points_to_bytes(delta, self.ops)
 
     # --------------------------------------------------------------- update
 
@@ -235,11 +238,14 @@ class PorlaClient:
                 f"{self.write_step}: the complement scheme requires "
                 f"round-robin updates; expected block {expected} "
                 f"(see UpdateOrderError)")
-        chunks = self.create_data_block(block_id)
+        with trace.span("client.prg"):
+            chunks = self.create_data_block(block_id)
         compl = self.complement_points([(0, block_id, self.write_step)])
         commit = self._commit_blocks([chunks])
-        mac = self.ops.add(commit, compl)
-        mac_b = points_io.points_to_bytes(mac, self.ops)
+        with trace.span("client.mac"):
+            mac = self.ops.add(commit, compl)
+        with trace.span("client.serialize", points=1):
+            mac_b = points_io.points_to_bytes(mac, self.ops)
 
         self.write_step += 1
         if self.write_step % self.num_blocks == 0:
@@ -300,50 +306,54 @@ class PorlaClient:
         if seed is None:
             seed = self.audit_seed_rng.random_block(1)
 
-        plan = auditing.build_audit_plan(seed, ws, n, self.height)
-        # pad to the occupancy-independent worst-case slot count, as the
-        # server does (padding: coeff 0, an identity contribution)
-        S = auditing.audit_pad_slots(n, self.height)
-        auditing.check_pad_slots(plan, S)
+        with trace.span("audit.plan"):
+            plan = auditing.build_audit_plan(seed, ws, n, self.height)
+            # pad to the occupancy-independent worst-case slot count, as
+            # the server does (padding: coeff 0, an identity contribution)
+            S = auditing.audit_pad_slots(n, self.height)
+            auditing.check_pad_slots(plan, S)
+            # complements for the sampled positions, at each level's
+            # masked step
+            by_level: dict[int, list[int]] = {}
+            for k, s in enumerate(plan.samples):
+                by_level.setdefault(s.level, []).append(k)
+            records = [None] * len(plan.samples)
+            for level, idxs in by_level.items():
+                mws = auditing.masked_write_step(ws, level)
+                sz = 1 << level
+                for k in idxs:
+                    s = plan.samples[k]
+                    index = s.index if s.is_x else s.index + sz
+                    records[k] = (level, index, mws)
+            records += [(0, 0, 0)] * (S - len(records))
         reply = self.transport(b"A" + seed)
-
-        # complements for the sampled positions, at each level's masked step
-        by_level: dict[int, list[int]] = {}
-        for k, s in enumerate(plan.samples):
-            by_level.setdefault(s.level, []).append(k)
-        records = [None] * len(plan.samples)
-        for level, idxs in by_level.items():
-            mws = auditing.masked_write_step(ws, level)
-            sz = 1 << level
-            for k in idxs:
-                s = plan.samples[k]
-                index = s.index if s.is_x else s.index + sz
-                records[k] = (level, index, mws)
-        records += [(0, 0, 0)] * (S - len(records))
         compl = self.complement_points(records)
-        coeffs = ([s.coeff for s in plan.samples]
-                  + [0] * (S - len(plan.samples)))
         ops = self.ops
-        combined_compl = ops.to_affine(ck.msm(
-            ops, compl, limbs.ints_to_tensor(coeffs, self.device),
-            nbits=32))[0]
+        with trace.span("client.audit.msm", points=S):
+            coeffs = ([s.coeff for s in plan.samples]
+                      + [0] * (S - len(plan.samples)))
+            combined_compl = ops.to_affine(ck.msm(
+                ops, compl, limbs.ints_to_tensor(coeffs, self.device),
+                nbits=32))[0]
 
-        if self.config.scheme == "ipa":
-            commitment = ecc.secp_parse_compressed(reply[0:33])
-            combined_mac = ecc.secp_parse_compressed(reply[33:66])
-            combined_align = ecc.secp_parse_compressed(reply[66:99])
-        else:
-            # kzg (Client.hpp:846-876): reply = [proof(192) | MAC(96) |
-            # align(96)]; proof = [C(64) | H(64) | z(32) | claimed(32)]
-            commitment = ecc.bn254_unmarshal(reply[0:64])
-            combined_mac, combined_align = ops.to_affine(
-                points_io.points_from_bytes(reply[192:384], ops))
+        with trace.span("client.audit.mac_check", bytes=len(reply)):
+            if self.config.scheme == "ipa":
+                commitment = ecc.secp_parse_compressed(reply[0:33])
+                combined_mac = ecc.secp_parse_compressed(reply[33:66])
+                combined_align = ecc.secp_parse_compressed(reply[66:99])
+            else:
+                # kzg (Client.hpp:846-876): reply = [proof(192) | MAC(96) |
+                # align(96)]; proof = [C(64) | H(64) | z(32) | claimed(32)]
+                commitment = ecc.bn254_unmarshal(reply[0:64])
+                combined_mac, combined_align = ops.to_affine(
+                    points_io.points_from_bytes(reply[192:384], ops))
 
-        cv = ops.curve
-        lhs = ecc.add(cv, ecc.mul(cv, commitment, self.alpha),
-                      combined_compl)
-        rhs = ecc.add(cv, combined_mac,
-                      ecc.mul(cv, combined_align, self.alpha))
+            cv = ops.curve
+            with trace.span("ecc.host"):
+                lhs = ecc.add(cv, ecc.mul(cv, commitment, self.alpha),
+                              combined_compl)
+                rhs = ecc.add(cv, combined_mac,
+                              ecc.mul(cv, combined_align, self.alpha))
         if lhs != rhs:
             raise AuditError("MAC equation failed: data loss detected")
 

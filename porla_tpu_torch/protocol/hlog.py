@@ -26,6 +26,7 @@ import torch
 from porla_tpu_torch.curves.weierstrass import JacPoint, cat
 from porla_tpu_torch.ntt.engine import CrtArray, NttContext
 from porla_tpu_torch.protocol import compute
+from porla_tpu_torch.utils import trace
 
 
 def infinity_points(n: int, ops, device="cpu") -> JacPoint:
@@ -67,14 +68,15 @@ def mix_planes(ctx: NttContext, lower_x: Planes, lower_y: Planes,
     out_y = Planes()
 
     if lower_x.data is not None:
-        a0 = concat_crt(lower_x.data, lower_y.data)
-        a1 = concat_crt(upper_x.data, upper_y.data)
-        tw2 = type(tw)(*(np.concatenate([t, t], 0) for t in tw))
-        hi, lo = compute.data_butterfly(ctx.mod_q, a0, a1, tw2)
-        out_x.data = concat_crt(CrtArray(hi.p[:length], hi.q[:length]),
-                                CrtArray(lo.p[:length], lo.q[:length]))
-        out_y.data = concat_crt(CrtArray(hi.p[length:], hi.q[length:]),
-                                CrtArray(lo.p[length:], lo.q[length:]))
+        with trace.span("fold.data", lanes=2 * length):
+            a0 = concat_crt(lower_x.data, lower_y.data)
+            a1 = concat_crt(upper_x.data, upper_y.data)
+            tw2 = type(tw)(*(np.concatenate([t, t], 0) for t in tw))
+            hi, lo = compute.data_butterfly(ctx.mod_q, a0, a1, tw2)
+            out_x.data = concat_crt(CrtArray(hi.p[:length], hi.q[:length]),
+                                    CrtArray(lo.p[:length], lo.q[:length]))
+            out_y.data = concat_crt(CrtArray(hi.p[length:], hi.q[length:]),
+                                    CrtArray(lo.p[length:], lo.q[length:]))
 
     names = lower_x.point_names()
     m0 = [lower_x.points[n] for n in names] + [lower_y.points[n] for n in names]
@@ -92,10 +94,12 @@ def fold_to_level(ctx: NttContext, levels: list[Level], target: int,
     """HRebuildX+Y combined: fold level-0 slot 0 with the incoming slot 1
     through levels 1..target-1, depositing the result as level `target`'s
     content. Marks levels < target empty."""
-    st_x, st_y = mix_planes(ctx, levels[0].x, levels[0].y, slot1_x, slot1_y, 1)
-    for i in range(1, target):
-        st_x, st_y = mix_planes(ctx, levels[i].x, levels[i].y, st_x, st_y,
-                                1 << i)
+    with trace.span("hlog.fold", level=target):
+        st_x, st_y = mix_planes(ctx, levels[0].x, levels[0].y, slot1_x,
+                                slot1_y, 1)
+        for i in range(1, target):
+            st_x, st_y = mix_planes(ctx, levels[i].x, levels[i].y, st_x,
+                                    st_y, 1 << i)
     levels[target].x, levels[target].y = st_x, st_y
     levels[target].empty = False
     levels[target].file_backed = False

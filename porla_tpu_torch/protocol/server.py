@@ -166,14 +166,16 @@ class PorlaServer:
     def _absorb_deltas(self, level: int, msg: bytes) -> None:
         """Add complement deltas into MAC_commitments_H[level]
         (Server.hpp:289-307, 449-469)."""
-        deltas = points_io.points_from_bytes(msg, self.ops, self.device)
+        with trace.span("server.parse", bytes=len(msg)):
+            deltas = points_io.points_from_bytes(msg, self.ops, self.device)
         l = 1 << level
         assert deltas.x.shape[0] == 2 * l
         lv = self.levels[level]
-        lv.x.points["c"] = self.ops.add(lv.x.points["c"],
-                                        index(deltas, slice(0, l)))
-        lv.y.points["c"] = self.ops.add(lv.y.points["c"],
-                                        index(deltas, slice(l, 2 * l)))
+        with trace.span("server.absorb", points=2 * l, level=level):
+            lv.x.points["c"] = self.ops.add(lv.x.points["c"],
+                                            index(deltas, slice(0, l)))
+            lv.y.points["c"] = self.ops.add(lv.y.points["c"],
+                                            index(deltas, slice(l, 2 * l)))
 
     # ------------------------------------------------------------- rebuild
 
@@ -279,15 +281,16 @@ class PorlaServer:
     def _update_impl(self, payload: bytes) -> bytes:
         index_ = int.from_bytes(payload[:8], "little")
         data = payload[:BLOCK_SIZE]
-        self.store.write_block(index_ - 1, data)
-        chunks = [int.from_bytes(data[i * 32:(i + 1) * 32], "little")
-                  for i in range(NUM_CHUNKS)]
-
-        mac = points_io.points_from_bytes(
-            payload[BLOCK_SIZE:BLOCK_SIZE + points_io.MAC_WIRE_SIZE],
-            self.ops, self.device)
-        for dst, src in zip(self.mac_u, mac):
-            dst[index_ - 1] = src[0]
+        with trace.span("server.block_write", bytes=BLOCK_SIZE):
+            self.store.write_block(index_ - 1, data)
+        with trace.span("server.parse", points=1):
+            chunks = [int.from_bytes(data[i * 32:(i + 1) * 32], "little")
+                      for i in range(NUM_CHUNKS)]
+            mac = points_io.points_from_bytes(
+                payload[BLOCK_SIZE:BLOCK_SIZE + points_io.MAC_WIRE_SIZE],
+                self.ops, self.device)
+            for dst, src in zip(self.mac_u, mac):
+                dst[index_ - 1] = src[0]
 
         self.write_step += 1
         if self.write_step % self.num_blocks == 0:
@@ -305,16 +308,17 @@ class PorlaServer:
         with trace.span("server.hadd"):
             ctx = self.ctx
             wt = ctx.wt_scalar(self.write_step)
-            data = engine.crt_from_ints(chunks, self.mod_q, self.device)
-            data = CrtArray(data.p[None], data.q[None])  # (1, C, 16)
+            with trace.span("server.hadd.scale", chunks=len(chunks)):
+                data = engine.crt_from_ints(chunks, self.mod_q, self.device)
+                data = CrtArray(data.p[None], data.q[None])  # (1, C, 16)
 
-            data_b2 = compute.scale_crt(self.mod_q, data, wt)
-            mac_b2 = compute.point_scale(mac, wt.std, ops=self.ops)
+                data_b2 = compute.scale_crt(self.mod_q, data, wt)
+                mac_b2 = compute.point_scale(mac, wt.std, ops=self.ops)
+                align_b2 = hlog.infinity_points(1, self.ops, self.device)
+                align_x = hlog.infinity_points(1, self.ops, self.device)
 
             # align_MAC(data_B2): commit the mod-p correction, reduce data
-            align_b2, data_b2 = self._align(
-                data_b2, hlog.infinity_points(1, self.ops, self.device))
-            align_x = hlog.infinity_points(1, self.ops, self.device)
+            align_b2, data_b2 = self._align(data_b2, align_b2)
 
             slot_x = Planes(data=data, points={"c": mac, "a": align_x})
             slot_y = Planes(data=data_b2, points={"c": mac_b2, "a": align_b2})
@@ -403,9 +407,10 @@ class PorlaServer:
     def _align(self, data: CrtArray, acc: JacPoint):
         """align_MAC (Server.hpp:478-562): acc += commit((A mod p) - A);
         A := A mod p. Returns (new acc (batch,), reduced data)."""
-        c = engine.align_scalars(data, self.mod_q)
-        return (self.ops.add(acc, self._commit_batch(c)),
-                engine.crt_reduce_mod_p(data, self.mod_q))
+        with trace.span("server.align", lanes=data.p.shape[0]):
+            c = engine.align_scalars(data, self.mod_q)
+            return (self.ops.add(acc, self._commit_batch(c)),
+                    engine.crt_reduce_mod_p(data, self.mod_q))
 
     def _commit_batch(self, scalars: torch.Tensor) -> JacPoint:
         """Commit a (B, NUM_CHUNKS, 16) scalar batch: the Pedersen MSM over
@@ -494,27 +499,29 @@ class PorlaServer:
                 index(cat(pc), inv), index(cat(pa), inv))
 
     def _audit_impl(self, seed: bytes) -> bytes:
-        plan = auditing.build_audit_plan(
-            seed, self.write_step, self.num_blocks, self.height)
+        with trace.span("audit.plan"):
+            plan = auditing.build_audit_plan(
+                seed, self.write_step, self.num_blocks, self.height)
+            # pad every audit batch to the occupancy-independent worst case
+            # (auditing.audit_pad_slots): zero blocks with coefficient 0
+            # and points at infinity are exact identity contributions
+            S = auditing.audit_pad_slots(self.num_blocks, self.height)
+            auditing.check_pad_slots(plan, S)
         ops, dev = self.ops, self.device
         with trace.span("server.audit.gather", samples=len(plan.samples)):
             blocks, ptc, pta = self._gather(plan)
         coeffs = [s.coeff for s in plan.samples]
 
-        # pad every audit batch to the occupancy-independent worst case
-        # (auditing.audit_pad_slots): zero blocks with coefficient 0 and
-        # points at infinity are exact identity contributions
-        S = auditing.audit_pad_slots(self.num_blocks, self.height)
-        auditing.check_pad_slots(plan, S)
         npad = S - len(coeffs)
         if npad:
-            zb = torch.zeros((npad,) + tuple(blocks.p.shape[1:]),
-                             dtype=blocks.p.dtype, device=dev)
-            blocks = CrtArray(torch.cat([blocks.p, zb]),
-                              torch.cat([blocks.q, zb]))
-            inf = hlog.infinity_points(npad, ops, dev)
-            ptc, pta = cat([ptc, inf]), cat([pta, inf])
-            coeffs += [0] * npad
+            with trace.span("server.audit.pad", slots=npad):
+                zb = torch.zeros((npad,) + tuple(blocks.p.shape[1:]),
+                                 dtype=blocks.p.dtype, device=dev)
+                blocks = CrtArray(torch.cat([blocks.p, zb]),
+                                  torch.cat([blocks.q, zb]))
+                inf = hlog.infinity_points(npad, ops, dev)
+                ptc, pta = cat([ptc, inf]), cat([pta, inf])
+                coeffs += [0] * npad
 
         with trace.span("server.audit.combine"):
             B = compute.linear_combine_crt(self.mod_q, blocks, coeffs)
@@ -533,15 +540,16 @@ class PorlaServer:
         # align_MAC(B, combined_align); commitment over the reduced B
         B1 = CrtArray(B.p[None], B.q[None])
         combined_align_b, B1 = self._align(B1, combined_align_j)
-        b_chunks = limbs.tensor_to_ints(B1.p[0])
+        with trace.span("server.audit.commit", chunks=NUM_CHUNKS):
+            b_chunks = limbs.tensor_to_ints(B1.p[0])
+            if self.config.scheme == "ipa":
+                combined_mac = ops.to_affine(combined_mac_j)[0]
+                combined_align = ops.to_affine(combined_align_b)[0]
+                commitment = ops.to_affine(self._commit_batch(
+                    limbs.ints_to_tensor(b_chunks, dev)[None]))[0]
         if self.config.scheme == "kzg":
             return self._kzg_reply(plan, b_chunks, combined_mac_j,
                                    combined_align_b)
-
-        combined_mac = ops.to_affine(combined_mac_j)[0]
-        combined_align = ops.to_affine(combined_align_b)[0]
-        commitment = ops.to_affine(self._commit_batch(
-            limbs.ints_to_tensor(b_chunks, dev)[None]))[0]
 
         # IPA proof over (B, challenge powers) (Server.hpp:856-877)
         a_vec = list(b_chunks)
@@ -552,10 +560,11 @@ class PorlaServer:
             v = (v * v) % self.mod_q.n
         with trace.span("server.audit.prove"):
             proof = ipa.prove(a_vec, b_vec, self.generators, self.u)
-        return (ecc.secp_serialize_compressed(commitment)
-                + ecc.secp_serialize_compressed(combined_mac)
-                + ecc.secp_serialize_compressed(combined_align)
-                + proof)
+        with trace.span("server.audit.serialize"):
+            return (ecc.secp_serialize_compressed(commitment)
+                    + ecc.secp_serialize_compressed(combined_mac)
+                    + ecc.secp_serialize_compressed(combined_align)
+                    + proof)
 
     def _kzg_reply(self, plan, b_chunks: list[int], combined_mac: JacPoint,
                    combined_align: JacPoint) -> bytes:
@@ -568,11 +577,12 @@ class PorlaServer:
             # C int -> Go uint64 conversion (a negative one wraps mod 2^64)
             z = plan.kzg_challenge & 0xFFFFFFFFFFFFFFFF
             H, claimed = kzg.open_at(self.srs, b_chunks, z, self.device)
-        proof = (ecc.bn254_marshal(commitment) + ecc.bn254_marshal(H)
-                 + (z % kzg.FR).to_bytes(32, "big")
-                 + claimed.to_bytes(32, "big"))
-        return (proof + points_io.points_to_bytes(combined_mac, self.ops)
-                + points_io.points_to_bytes(combined_align, self.ops))
+        with trace.span("server.audit.serialize"):
+            proof = (ecc.bn254_marshal(commitment) + ecc.bn254_marshal(H)
+                     + (z % kzg.FR).to_bytes(32, "big")
+                     + claimed.to_bytes(32, "big"))
+            return (proof + points_io.points_to_bytes(combined_mac, self.ops)
+                    + points_io.points_to_bytes(combined_align, self.ops))
 
     # ---------------------------------------------------- checkpoint/resume
 

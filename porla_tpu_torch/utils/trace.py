@@ -7,15 +7,21 @@ proper subsystem:
 
 - `span(name, **attrs)`: nested wall-clock spans forming a tree
   (contextvar-based, so ZMQ server threads and the in-process transport
-  both nest correctly).
-- `count(name, n)` / `gauge(name, v)`: monotonic counters / last-value
-  gauges attached to the current span's path.
+  both nest correctly). Each record carries its `id` (a counter of the
+  process), its `parent` (the enclosing span's id, or None) and its
+  `root` (the id of the outermost span of the request), so a reader can
+  rebuild the tree of one request without parsing paths.
+- `count(name, n)`: monotonic counters attached to the current span's
+  path.
 - `summary()`: per-path aggregates (calls, total/mean/max seconds).
 - JSONL export of finished spans for offline analysis.
 
 Tracing is OFF by default and costs one `if` per call site. Enable with
 `PORLA_TRACE=1` (optionally `PORLA_TRACE_FILE=/path/out.jsonl`) or
-programmatically via `enable()`.
+programmatically via `enable()`. While it is on and a `torch.profiler`
+session is recording, each span also opens a `record_function` range of
+its name, so the profiler's trace holds the spans on its own clock, next
+to the card work they launched.
 
 GPU caveat: CUDA launches are asynchronous — a span around a launch
 measures enqueue unless the caller synchronizes or copies a result to
@@ -30,21 +36,24 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 import json
 import os
 import threading
 import time
-from dataclasses import dataclass, field
+
+import torch
 
 _lock = threading.Lock()
 _enabled = os.environ.get("PORLA_TRACE") == "1"
 _sync = None                     # called before a span's clock stops
-_stack: contextvars.ContextVar[tuple[str, ...]] = contextvars.ContextVar(
-    "porla_trace_stack", default=())
+# the open spans of this context: their names and their ids, outermost first
+_stack: contextvars.ContextVar[tuple[tuple[str, ...], tuple[int, ...]]] = \
+    contextvars.ContextVar("porla_trace_stack", default=((), ()))
+_ids = itertools.count(1)        # span ids, unique in the process
 
 _spans: list[dict] = []          # finished spans (insertion order)
 _counters: dict[str, float] = {}
-_gauges: dict[str, float] = {}
 
 
 def enable(on: bool = True, sync=None) -> None:
@@ -64,7 +73,6 @@ def reset() -> None:
     with _lock:
         _spans.clear()
         _counters.clear()
-        _gauges.clear()
 
 
 @contextlib.contextmanager
@@ -73,23 +81,28 @@ def span(name: str, **attrs):
     if not _enabled:
         yield
         return
-    parent = _stack.get()
-    path = parent + (name,)
-    token = _stack.set(path)
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if _sync is not None:
-            _sync()
-        dt = time.perf_counter() - t0
-        _stack.reset(token)
-        rec = {"path": "/".join(path), "name": name, "depth": len(parent),
-               "elapsed_s": round(dt, 6), "ts": round(t0, 6)}
-        if attrs:
-            rec["attrs"] = attrs
-        with _lock:
-            _spans.append(rec)
+    names, ids = _stack.get()
+    sid = next(_ids)
+    token = _stack.set((names + (name,), ids + (sid,)))
+    with (torch.profiler.record_function(name)
+          if torch.autograd._profiler_enabled() else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if _sync is not None:
+                _sync()
+            dt = time.perf_counter() - t0
+            _stack.reset(token)
+            rec = {"path": "/".join(names + (name,)), "name": name,
+                   "depth": len(names), "id": sid,
+                   "parent": ids[-1] if ids else None,
+                   "root": ids[0] if ids else sid,
+                   "elapsed_s": round(dt, 6), "ts": round(t0, 6)}
+            if attrs:
+                rec["attrs"] = attrs
+            with _lock:
+                _spans.append(rec)
 
 
 def spans() -> list[dict]:
@@ -101,22 +114,14 @@ def spans() -> list[dict]:
 def count(name: str, n: float = 1) -> None:
     if not _enabled:
         return
-    key = "/".join(_stack.get() + (name,))
+    key = "/".join(_stack.get()[0] + (name,))
     with _lock:
         _counters[key] = _counters.get(key, 0) + n
 
 
-def gauge(name: str, value: float) -> None:
-    if not _enabled:
-        return
-    key = "/".join(_stack.get() + (name,))
-    with _lock:
-        _gauges[key] = value
-
-
 def summary() -> dict[str, dict]:
     """Aggregate finished spans by path: calls, total/mean/max seconds;
-    counters and gauges appended under their own keys."""
+    counters appended under their own keys."""
     out: dict[str, dict] = {}
     with _lock:
         for s in _spans:
@@ -130,8 +135,6 @@ def summary() -> dict[str, dict]:
             a["mean_s"] = round(a["total_s"] / a["calls"], 6)
         for k, v in _counters.items():
             out[k] = {"count": v}
-        for k, v in _gauges.items():
-            out[k] = {"gauge": v}
     return out
 
 
@@ -144,10 +147,8 @@ def report(file=None) -> str:
         if "total_s" in a:
             lines.append(f"{path:<48} {a['calls']:>6} {a['total_s']:>9.3f} "
                          f"{a['mean_s']:>9.4f}")
-        elif "count" in a:
-            lines.append(f"{path:<48} {'':>6} {a['count']:>9g}     count")
         else:
-            lines.append(f"{path:<48} {'':>6} {a['gauge']:>9g}     gauge")
+            lines.append(f"{path:<48} {'':>6} {a['count']:>9g}     count")
     text = "\n".join(lines)
     if file is not None:
         print(text, file=file)
