@@ -4,17 +4,17 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   `porla_tpu_torch/csrc/` (seven sources, one `nvcc` each, in parallel)
+   `porla_tpu_torch/csrc/` (eight sources, one `nvcc` each, in parallel)
    and the native host runtime (`runtime/native/porla_rt.cc`, g++) and
    prints the build seconds.
 2. Holds each kernel (K1 ntt_stage, K2 scalar_mul in its windowed and
    GLV modes, K3 point_butterfly, K4 fixed_base, group_sum, K5 pip_bucket,
-   K6 bucket_fold, K7 point_butterfly_window) at the shapes of the paths
-   below against its plain torch version on the card (tolerance: exact,
-   bit-identical limbs or bucket words, so points are the same affine
-   points, infinity included) and against exact Python integers on a few
-   lanes, including edge lanes. Times both with CUDA events (median after
-   a warm-up). K1 per CRT lane at (1024, 128, 16) (one launch, beside the
+   K6 bucket_fold, K7 point_butterfly_window, point_add) at the shapes of
+   the paths below against its plain torch version on the card
+   (tolerance: exact, bit-identical limbs or bucket words, so points are
+   the same affine points, infinity included) and against exact Python
+   integers on a few lanes, including edge lanes. Times both with CUDA
+   events (median after a warm-up). K1 per CRT lane at (1024, 128, 16) (one launch, beside the
    same stages as one-stage launches) and at n = 2^14 (two passes); K2 GLV
    at 1024 lanes and at 1 (an update's); K4 at each of the path's shapes
    (per lane and in groups at the commit shape, the two IPA shapes, the
@@ -22,7 +22,10 @@
    group_sum at GS_SHAPES (the audit's part sums, odd widths, 2^14 points
    in one group spread over 128 blocks, and the one- and two-add groups
    whose difference gives the depth floor's unit), one launch each; K7 at
-   1024 lanes and at `run_msm`'s 300 (a ragged last block). One
+   1024 lanes and at `run_msm`'s 300 (a ragged last block); point_add at
+   PA_SHAPES (1 to 2048 lanes, a ragged block at 17), negate off and on,
+   with lanes at infinity on either side, P + P and P + (-P), and a warp
+   whose lanes need the doubling in only some lanes. One
    `fb_msm_groups`, one `commit_blocks`, one `msm_parts`, one `point_scale`
    and one `encode_crt` call must be their kernels' launches alone, with no
    plain torch point (or, for the last two, field) arithmetic. K5 and K6
@@ -34,8 +37,9 @@
    The KZG path's kernels are held the same way on BN254 G1 operands at
    its shapes: K1's q lane mod BN254's r, K2 in both modes, K3, K4 over the
    SRS (the server's commitments, 131072 lanes in 1024 groups and 128 in
-   one) and on h (the client's complements), group_sum at GS_SHAPES, and K7
-   at 1024 lanes and 64 bits, as on secp256k1.
+   one) and on h (the client's complements), group_sum at GS_SHAPES,
+   point_add at PA_SHAPES and K7 at 1024 lanes and 64 bits, as on
+   secp256k1.
 3. Runs the protocol at n = 1024 blocks on the card, first the IPA scheme
    (secp256k1), then the KZG scheme (BN254): initialize, an audit, 4
    updates, another audit (both must verify), then a corrupted codeword
@@ -43,7 +47,8 @@
    restored from it on the card, and an audit, an update and an audit
    against it that verify. In each scheme K1-K4's and group_sum's launch
    counts must rise up to the second audit, initialize must launch K1
-   exactly 4 times (two CRT arrays of two lanes) and no update any. K3 is
+   exactly 4 times (two CRT arrays of two lanes) and no update any, and
+   point_add must be launched 5 times an update and once an audit. K3 is
    then checked and timed at the widest butterfly the IPA updates
    launched.
 4. Runs the MSM entry point (see `run_msm`).
@@ -688,6 +693,96 @@ def check_group_sum(dev, rng, ops, shapes=GS_SHAPES, add_ms=None,
         f"{B}x{nout}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "depth_ms", "nb")}
         for (B, nout), r in rows.items()})
+
+
+# point_add's checked lane counts: an update's MAC add (1), its deltas and
+# absorbs (2 to 2048 lanes at fold levels 0 to 10; 1024 is the kernels
+# line's row), one block of 16 lanes and a ragged block at 17
+PA_SHAPES = (1, 2, 16, 17, 512, 1024, 2048)
+
+
+def point_add_inputs(dev, rng, ops, B, negate):
+    """point_add's operands at B lanes and the golden sums of every lane.
+    Lanes by their index mod 8 (from B = 3): a at infinity, the added point
+    at infinity, the doubling (the same point in another Jacobian form), the
+    inverse pair, then four generic lanes; so warp 0 (lanes 0-3) needs the
+    doubling in one lane and warp 1 in none. B = 2: the doubling, then a
+    generic lane; B = 1: a generic lane. With `negate` the added point is
+    passed negated."""
+    from porla_tpu_torch.golden import ecc
+
+    cv = ops.curve
+    a = rand_points(rng, cv, B)
+    c = rand_points(rng, cv, B)
+    for i in range(B):
+        case = (i % 8 if B > 2 else 2 if B == 2 and i == 0 else 7)
+        if case == 0:
+            a[i] = ecc.INF
+        elif case == 1:
+            c[i] = ecc.INF
+        elif case == 2:
+            c[i] = a[i]
+        elif case == 3:
+            c[i] = ecc.neg(cv, a[i])
+    b = [ecc.neg(cv, q) for q in c] if negate else c
+    zs = lambda: [1 + v for v in rand_below(rng, cv.p - 1, B)]
+    return (jacobian(ops, a, zs(), dev), jacobian(ops, b, zs(), dev),
+            [ecc.add(cv, p, q) for p, q in zip(a, c)])
+
+
+def check_point_add(dev, rng, ops, shapes=PA_SHAPES, add_ms=None,
+                    row_at=N_BLOCKS):
+    """point_add at `shapes`, negate off and on: limb for limb
+    `point_add_plain`, every lane equal to the golden sum, one launch a
+    call; timed on the card's timeline (`ms`, `plain_ms`) and as the host
+    waits for a call, launch to synchronise (`call_ms`, `plain_call_ms`),
+    beside the bound and the latency of one cooperative add (`add_ms`,
+    group_sum's). Returns the row at `row_at`, negate off, with every
+    shape under `shapes`."""
+    from porla_tpu_torch import native
+    from porla_tpu_torch.curves import cuda_curve as cc
+
+    def call_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize(dev)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    rows = {}
+    for B in shapes:
+        for negate in (False, True):
+            A, Bp, want = point_add_inputs(dev, rng, ops, B, negate)
+            before = native.launches()["point_add"]
+            got = cc.point_add(ops, A, Bp, negate)
+            if native.launches()["point_add"] - before != 1:
+                raise AssertionError(f"point_add at {B} lanes: not one "
+                                     f"launch")
+            plain = cc.point_add_plain(ops, A, Bp, negate)
+            err = check_points(ops, f"point_add at {B} lanes, negate "
+                               f"{negate}", got, plain, list(range(B)), want)
+            kern = lambda: cc.point_add(ops, A, Bp, negate)
+            plain_fn = lambda: cc.point_add_plain(ops, A, Bp, negate)
+            b_ms, b_by = bound(B * ADD * OPS_PER_FE_MUL, B * 9 * FE_BYTES)
+            row = dict(name="point_add", shape=[B, 16], negate=negate,
+                       ms=timed_ms(kern, dev, 10),
+                       plain_ms=timed_ms(plain_fn, dev, 3),
+                       call_ms=call_ms(kern, 20),
+                       plain_call_ms=call_ms(plain_fn, 5), max_abs_err=err,
+                       bound_ms=b_ms, bound_by=b_by, add_ms=add_ms)
+            rows[(B, negate)] = row
+            emit({"check": "point_add", **{k: v for k, v in row.items()
+                                           if k != "name"}})
+    return dict(rows[(row_at, False)],
+                max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                shapes={f"{B}{' neg' if neg else ''}": {
+                    k: r[k] for k in ("ms", "plain_ms", "call_ms",
+                                      "plain_call_ms", "bound_ms")}
+                    for (B, neg), r in rows.items()})
 
 
 def state_err(a, b) -> int:
@@ -1556,10 +1651,11 @@ def run_protocol(dev, store_dir, scheme="ipa", n=N_BLOCKS,
 
 
 def check_protocol_launches(scheme, phases, total, init_k1=4) -> None:
-    """K1-K4 and group_sum were launched by the cycle, initialize and every
-    update that closed an epoch (the server's CRebuild from the update
-    path) launched K1 exactly `init_k1` times (two CRT arrays of two lanes,
-    one K1 pass a lane on one device), and every other update none."""
+    """K1-K4, group_sum and point_add were launched by the cycle,
+    initialize and every update that closed an epoch (the server's CRebuild
+    from the update path) launched K1 exactly `init_k1` times (two CRT
+    arrays of two lanes, one K1 pass a lane on one device), and every other
+    update none; point_add as `POINT_ADDS` counts, at every fold level."""
     missing = [k for k in PROTOCOL_KERNELS if total[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the {scheme} protocol "
@@ -1572,10 +1668,22 @@ def check_protocol_launches(scheme, phases, total, init_k1=4) -> None:
                 f"{scheme} {rec['phase']} (write step "
                 f"{rec.get('write_step', 0)}) launched K1 "
                 f"{rec['launches']['ntt_stage']} times, not {want}")
+        want = POINT_ADDS.get(rec["phase"])
+        if want is not None and rec["launches"]["point_add"] != want:
+            raise AssertionError(
+                f"{scheme} {rec['phase']} (write step "
+                f"{rec.get('write_step', 0)}) launched point_add "
+                f"{rec['launches']['point_add']} times, not {want}")
 
 
 PROTOCOL_KERNELS = ("ntt_stage", "scalar_mul_window", "scalar_mul_glv",
-                    "point_butterfly", "fixed_base", "group_sum")
+                    "point_butterfly", "fixed_base", "group_sum", "point_add")
+
+# point_add's launches a phase of the cycle: an update's client MAC and
+# deltas, the server's two absorbs and its align; an audit's align; the
+# update that closes an epoch has no align (the CRebuild in place of HAdd)
+POINT_ADDS = {"update": 5, "resume_update": 5, "epoch_close": 4, "audit": 1,
+              "resume_audit": 1}
 
 
 def check_bn254(dev, rng) -> dict:
@@ -1583,8 +1691,9 @@ def check_bn254(dev, rng) -> dict:
     checks hold them: K1's q lane mod r at (1024, 128, 16), K2 in both
     modes, K3 at 1024 lanes, K4 at KZG_FB_SHAPES over the SRS of a random
     tau (not the protocol's, so the KZG cycle builds its own table),
-    group_sum at GS_SHAPES, K7 at 1024 lanes and 64 bits (no path of the
-    KZG scheme runs it). Returns kernel name -> its BN254 row."""
+    group_sum at GS_SHAPES, point_add at PA_SHAPES, K7 at 1024 lanes and
+    64 bits (no path of the KZG scheme runs it). Returns kernel name -> its
+    BN254 row."""
     from porla_tpu_torch.commit import kzg
     from porla_tpu_torch.config import NUM_CHUNKS
     from porla_tpu_torch.curves.instances import bn254
@@ -1600,6 +1709,8 @@ def check_bn254(dev, rng) -> dict:
     k4_rows = check_k4(dev, rng, ops, KZG_FB_SHAPES, srs.g1_powers)
     rows["fixed_base"] = k4_row(k4_rows)
     rows["group_sum"] = check_group_sum(dev, rng, ops)
+    rows["point_add"] = check_point_add(dev, rng, ops,
+                                        add_ms=rows["group_sum"]["add_ms"])
     rows["point_butterfly_window"] = check_k7(dev, rng, ops)
     for name, row in rows.items():
         emit(dict(check=f"{name} bn254", **{k: v for k, v in row.items()
@@ -2705,6 +2816,7 @@ def main() -> int:
                                          if k != "name"}))
     k4 = k4_row(k4_rows)
     gs = check_group_sum(dev, rng, ops)
+    pa = check_point_add(dev, rng, ops, add_ms=gs["add_ms"])
     emit(check_kernels_only(dev, rng, ops))
     emit(check_compute_kernels_only(dev, rng, ops))
     emit(check_k5_k6_modes(dev, rng, ops))
@@ -2921,7 +3033,7 @@ def main() -> int:
     # a row's ms, plain_ms and bound are at its secp256k1 shape (the IPA
     # path's); its BN254 numbers (the KZG path's) are under "bn254"
     rows = []
-    for r in (k1, *k2, k3, k4, gs, k5, k6, k7):
+    for r in (k1, *k2, k3, k4, gs, k5, k6, k7, pa):
         name = r["name"]
         k = native.KERNELS[name]
         per_phase = {}

@@ -1,5 +1,5 @@
 """Batched elliptic-curve kernels on the card: K2 `scalar_mul`, K3/K7
-`point_butterfly`, K4 `fixed_base` and `group_sum`.
+`point_butterfly`, K4 `fixed_base`, `group_sum` and `point_add`.
 
 Counterpart of `porla_tpu/curves/pallas_curve.py`. Each public function
 takes (B, 16)-limb tensors (Montgomery points, standard-form scalars) and
@@ -24,8 +24,10 @@ launches the kernel or raises.
   groups of points in `CurveOps.tree_sum`'s order, for `msm_parts` after K2
   and for K4's groups too wide for a block; a group's wide levels spread
   over the blocks of `group_sum_plan`, one launch a call.
+- `point_add` (`csrc/point_add.cu`): the protocol's general point add,
+  a[i] + b[i] or a[i] - b[i] (`CurveOps.add`'s limbs), one launch a call.
 
-K2, K3, K7 and `group_sum` share the cooperative arithmetic of
+K2, K3, K7, `group_sum` and `point_add` share the cooperative arithmetic of
 `csrc/porla_coop.cuh` (8 threads a field element, one 32-bit word each).
 """
 
@@ -62,6 +64,38 @@ def _check_points(p: JacPoint, B: int):
 def _empty_points(like: torch.Tensor) -> JacPoint:
     return JacPoint(torch.empty_like(like), torch.empty_like(like),
                     torch.empty_like(like))
+
+
+# --- point_add ----------------------------------------------------------------
+
+def point_add_plain(ops: CurveOps, a: JacPoint, b: JacPoint,
+                    negate: bool = False) -> JacPoint:
+    return ops.add(a, ops.neg(b) if negate else b)
+
+
+def point_add(ops: CurveOps, a: JacPoint, b: JacPoint,
+              negate: bool = False) -> JacPoint:
+    """a[i] + b[i], or a[i] - b[i] with `negate`, for two (B, 16)-limb
+    batches of Jacobian points: the full-cased add (infinity on either
+    side, P == Q, P == -Q), limb for limb `CurveOps.add`. One launch on the
+    card."""
+    B = a.x.shape[0]
+    _check_points(a, B)
+    _check_points(b, B)
+    if a.x.device.type == "cpu":
+        return point_add_plain(ops, a, b, negate)
+    dev = a.x.device
+    a = JacPoint(*(c.contiguous() for c in a))
+    b = JacPoint(*(c.contiguous() for c in b))
+    native.require(dev, *a, *b)
+    out = _empty_points(a.x)
+    lib = native.library()
+    rc = lib.porla_point_add(*map(native.ptr, a), *map(native.ptr, b),
+                             *map(native.ptr, out), B, int(negate),
+                             native.mod_words(ops.fp), native.stream(dev))
+    native.KERNELS["point_add"].launches += 1
+    native.check(rc, "point_add")
+    return out
 
 
 # --- GLV split (host) --------------------------------------------------------

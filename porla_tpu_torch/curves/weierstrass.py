@@ -8,8 +8,9 @@ either side, P == Q, P == -Q), so a batch of points gives the same Jacobian
 limbs here, in the reference and in the CUDA kernels of
 `curves/cuda_curve.py`.
 
-This is the plain torch curve layer: point adds outside the kernels (MAC
-sums, tree reductions) and the arithmetic of every kernel's plain version.
+This is the plain torch curve layer: the arithmetic of every kernel's plain
+version (the protocol's point adds on the CPU, through
+`cuda_curve.point_add_plain`, included).
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("ntt_stage.cu", "scalar_mul.cu", "point_butterfly.cu",
            "fixed_base.cu", "group_sum.cu", "pip_bucket.cu",
-           "bucket_fold.cu")
+           "bucket_fold.cu", "point_add.cu")
 HEADERS = ("porla_field.cuh", "porla_coop.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -77,6 +77,12 @@ KERNELS = {
     "group_sum": Kernel(
         "group_sum", "porla_tpu_torch/csrc/group_sum.cu",
         "porla_tpu/curves/weierstrass.py:257"),
+    # the protocol's general point add (MAC sums, deltas, align_MAC), which
+    # ran as plain torch limb arithmetic (the reference: CurveOps.add, left
+    # to its compiler)
+    "point_add": Kernel(
+        "point_add", "porla_tpu_torch/csrc/point_add.cu",
+        "porla_tpu/curves/weierstrass.py:127"),
 }
 
 
@@ -107,6 +113,7 @@ _SIGNATURES = {
     "porla_group_sum": [_P] * 9 + [_I64] + [_I32] * 2 + [_P, _P],
     "porla_pip_bucket": [_P] * 5 + [_I32] * 6 + [_P, _P],
     "porla_bucket_fold": [_P] * 5 + [_I32] * 4 + [_P, _P],
+    "porla_point_add": [_P] * 9 + [_I64, _I32, _P, _P],
 }
 
 

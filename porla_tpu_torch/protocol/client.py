@@ -181,7 +181,7 @@ class PorlaClient:
                 [(0, i + k + 1, self.write_step) for k in range(count)])
             compl_pts_all.append(compl)
             with trace.span("client.macs", n=count):
-                macs = self.ops.add(commits, compl)
+                macs = cuda_curve.point_add(self.ops, commits, compl)
                 macs_b = points_io.points_to_bytes(macs, self.ops)
             msg = b"".join(
                 self.block_bytes(b) + macs_b[k * 96:(k + 1) * 96]
@@ -219,7 +219,8 @@ class PorlaClient:
                 [(level, i, self.write_step) for i in range(2 * l)])
             folded = cat([folded_x, folded_y])
             with trace.span("point_add", points=2 * l):
-                delta = self.ops.add(fresh, self.ops.neg(folded))
+                delta = cuda_curve.point_add(self.ops, fresh, folded,
+                                              negate=True)
         with trace.span("client.serialize", points=2 * l):
             return points_io.points_to_bytes(delta, self.ops)
 
@@ -243,7 +244,7 @@ class PorlaClient:
         compl = self.complement_points([(0, block_id, self.write_step)])
         commit = self._commit_blocks([chunks])
         with trace.span("client.mac"):
-            mac = self.ops.add(commit, compl)
+            mac = cuda_curve.point_add(self.ops, commit, compl)
         with trace.span("client.serialize", points=1):
             mac_b = points_io.points_to_bytes(mac, self.ops)
 

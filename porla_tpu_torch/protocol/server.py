@@ -39,6 +39,7 @@ import torch
 from porla_tpu_torch import native
 from porla_tpu_torch.config import BLOCK_SIZE, NUM_CHUNKS, PorlaConfig
 from porla_tpu_torch.commit import ipa, kzg, pedersen
+from porla_tpu_torch.curves import cuda_curve
 from porla_tpu_torch.curves import kernels as ck
 from porla_tpu_torch.curves.instances import bn254, secp256k1
 from porla_tpu_torch.curves.weierstrass import JacPoint, cat, index
@@ -172,10 +173,10 @@ class PorlaServer:
         assert deltas.x.shape[0] == 2 * l
         lv = self.levels[level]
         with trace.span("server.absorb", points=2 * l, level=level):
-            lv.x.points["c"] = self.ops.add(lv.x.points["c"],
-                                            index(deltas, slice(0, l)))
-            lv.y.points["c"] = self.ops.add(lv.y.points["c"],
-                                            index(deltas, slice(l, 2 * l)))
+            lv.x.points["c"] = cuda_curve.point_add(
+                self.ops, lv.x.points["c"], index(deltas, slice(0, l)))
+            lv.y.points["c"] = cuda_curve.point_add(
+                self.ops, lv.y.points["c"], index(deltas, slice(l, 2 * l)))
 
     # ------------------------------------------------------------- rebuild
 
@@ -397,8 +398,9 @@ class PorlaServer:
         ax = stream.finalize_staged_level(self, dx, True, target, n_out, S)
         ay = stream.finalize_staged_level(self, dy, False, target, n_out, S)
         lvt = self.levels[target]
-        st_px.points["a"] = self.ops.add(st_px.points["a"], ax)
-        st_py.points["a"] = self.ops.add(st_py.points["a"], ay)
+        add = cuda_curve.point_add
+        st_px.points["a"] = add(self.ops, st_px.points["a"], ax)
+        st_py.points["a"] = add(self.ops, st_py.points["a"], ay)
         lvt.x, lvt.y = st_px, st_py
         lvt.empty = False
         lvt.file_backed = True
@@ -409,8 +411,8 @@ class PorlaServer:
         A := A mod p. Returns (new acc (batch,), reduced data)."""
         with trace.span("server.align", lanes=data.p.shape[0]):
             c = engine.align_scalars(data, self.mod_q)
-            return (self.ops.add(acc, self._commit_batch(c)),
-                    engine.crt_reduce_mod_p(data, self.mod_q))
+            acc = cuda_curve.point_add(self.ops, acc, self._commit_batch(c))
+            return acc, engine.crt_reduce_mod_p(data, self.mod_q)
 
     def _commit_batch(self, scalars: torch.Tensor) -> JacPoint:
         """Commit a (B, NUM_CHUNKS, 16) scalar batch: the Pedersen MSM over
