@@ -16,15 +16,21 @@ guarantee the configurations state, so `correct` has to come out false:
 - `half_audit`: the server combines only the first half of an audit's
   samples (half of the batch left out);
 - `altered_answer`: one byte of each audit reply is flipped where the
-  server produces it.
+  server produces it;
+- `altered_file`: one byte of a codeword file is flipped each time the
+  server has written the data of a level in files (an answer altered
+  where it is produced, for a configuration with levels above its
+  caching level and a window that forms one).
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 FAULTS = ("stale_update", "half_fold", "altered_update", "stale_audit",
-          "half_audit", "altered_answer")
+          "half_audit", "altered_answer", "altered_file")
 
 
 class _Planted:
@@ -48,7 +54,7 @@ class _Planted:
 
 def plant(name: str, client, server, transport) -> _Planted:
     from porla_tpu_torch.ntt.engine import CrtArray
-    from porla_tpu_torch.protocol import compute, hlog
+    from porla_tpu_torch.protocol import compute, hlog, stream
     from porla_tpu_torch.protocol import server as server_mod
 
     p = _Planted()
@@ -113,6 +119,19 @@ def plant(name: str, client, server, transport) -> _Planted:
             reply[-1] ^= 1
             return bytes(reply)
         p.set(server, "audit", audit)
+    elif name == "altered_file":
+        real = stream.finalize_staged_level
+
+        def finalize(srv, tag, is_x, level, n, stripe):
+            out = real(srv, tag, is_x, level, n, stripe)
+            path = os.path.join(srv.store.root, "H_X" if is_x else "H_Y",
+                                f"{level}_0")
+            with open(path, "r+b") as f:
+                byte = f.read(1)[0]
+                f.seek(0)
+                f.write(bytes([byte ^ 1]))
+            return out
+        p.set(stream, "finalize_staged_level", finalize)
     else:
         raise ValueError(f"unknown fault {name!r}; one of {FAULTS}")
     return p

@@ -9,10 +9,11 @@ each timed on the host clock from its call to its return, the card
 synchronised. With `traced` the program's spans are on (each waiting for
 the card before its clock stops) and `torch.profiler` records the card.
 
-After the window the server's state is read to the host and freed, and
-the reference (`porla_bench.reference`) replays the same requests from
-the same seed: the state and a sample of the audit replies must be what
-it works out, exactly.
+After the window the server's state is read to the host and freed (the
+data of a level above the caching level from the store's codeword files,
+before the store is removed), and the reference (`porla_bench.reference`)
+replays the same requests from the same seed: the state and a sample of
+the audit replies must be what it works out, exactly.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ class Run:
 def deployment(cfg: dict) -> Deployment:
     return Deployment(cfg["scheme"], cfg["num_blocks"], cfg["num_chunks"],
                       cfg["num_check_audit"], bytes.fromhex(cfg["secret_key"]),
-                      bytes.fromhex(cfg["tau_key"]))
+                      bytes.fromhex(cfg["tau_key"]), cfg["top_caching_level"])
 
 
 def _program(cfg: dict, store: str, dev, seed: int):
@@ -112,8 +113,6 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     readers = {m["name"]: manifest.reader(m["name"], root)
                for m in wanted if m["name"] != "setup_s"}
     dep = deployment(cfg)
-    if cfg["top_caching_level"] < dep.height - 1:
-        raise ValueError("the check reads levels held in memory only")
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
@@ -181,7 +180,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
         if planted is not None:
             planted.close()
         peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-        prog = state.server_state(server, dep.curve.p)
+        prog = state.server_state(server, dep.curve.p, dep.q, store)
         del client, server, transport
         gc.collect()
         if cuda:

@@ -16,6 +16,14 @@ must hold:
   fresh PRF(level, index, write step) of the level's formation
   (Client.hpp:256-306, 584-614).
 
+A level above the deployment's `top_caching_level` lives in the
+server's H_X/H_Y files, written in the 256-bit form: the final pass of
+CRebuild_No_Cached (Server.hpp:1835-2255, align_MAC then write_256b at
+:1977-1981) and of the disk `mix` (Server.hpp:954-1207) reduce each
+element mod p as the level is formed and commit the difference into the
+alignment plane. So such a level keeps `u` and holds v mod p, and a later
+fold or audit reads that reduced value.
+
 Commit is the Pedersen sum over the IPA generators, or for KZG the SRS
 sum, f(tau) * G1. An audit reply is computed from the levels as the
 server must answer it (Server.hpp:596-916).
@@ -55,7 +63,8 @@ class Deployment:
     """What a configuration fixes, and the scheme's public values."""
 
     def __init__(self, scheme: str, num_blocks: int, chunks: int,
-                 num_check_audit: int, secret_key: bytes, tau_key: bytes):
+                 num_check_audit: int, secret_key: bytes, tau_key: bytes,
+                 top_caching_level: int | None = None):
         if num_blocks & (num_blocks - 1):
             raise ValueError("num_blocks must be a power of two")
         self.scheme = scheme
@@ -63,6 +72,10 @@ class Deployment:
         self.chunks = chunks
         self.num_check_audit = num_check_audit
         self.height = num_blocks.bit_length()
+        # levels above it are in files (TOP_CACHING_LEVEL, config.hpp:13);
+        # by default every level is held in memory
+        self.top_caching_level = self.height - 1 if top_caching_level is None \
+            else top_caching_level
         self.key = secret_key
         self.w = pow(FFT_GENERATOR, (FFT_PRIME - 1) // (2 * num_blocks),
                      FFT_PRIME)
@@ -196,7 +209,8 @@ class Replay:
             tw = dep.twiddles(m2)
             dx, dy = _stage(dx, tw, m2, M), _stage(dy, tw, m2, M)
         top = dep.height - 1
-        sx, sy = Side(dx, dx % dep.q), Side(dy, dy % dep.q)
+        sx, sy = _formed(dep, top, (Side(dx, dx % dep.q),
+                                    Side(dy, dy % dep.q)))
         self._fresh(top, sx, sy)
         self.levels = [None] * top + [(sx, sy)]
 
@@ -217,6 +231,7 @@ class Replay:
             while self.levels[level] is not None:
                 slot = _mix(dep, self.levels[level], slot, 1 << level)
                 level += 1
+            slot = _formed(dep, level, slot)
         self._fresh(level, *slot)
         self.levels[:level + 1] = [None] * level + [slot]
 
@@ -274,6 +289,16 @@ def _stage(a: np.ndarray, tw: np.ndarray, m2: int, M: int) -> np.ndarray:
     lo = v[:, :m2]
     out = np.concatenate([(lo + t) % M, (lo - t) % M], axis=1)
     return out.reshape(rows, c)
+
+
+def _formed(dep: Deployment, level: int, sides):
+    """A level as the server keeps it once formed: in memory as it was
+    worked out, or in files with each element reduced mod p and `u` kept,
+    so that its alignment exponent becomes (v mod p - u) mod q (align_MAC
+    in the final pass of CRebuild_No_Cached and of the disk `mix`)."""
+    if level <= dep.top_caching_level:
+        return sides
+    return tuple(Side(s.v % FFT_PRIME, s.u, s.r) for s in sides)
 
 
 def _mix(dep: Deployment, lower, upper, length: int):

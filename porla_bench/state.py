@@ -2,14 +2,21 @@
 
 The port keeps a 256-bit value as 16 little-endian 16-bit limbs in an
 int64 tensor, data lanes in standard form and curve coordinates in
-Montgomery form (R = 2^256). This module decodes them without the
-program's own codecs, so that the check does not lean on what it judges.
+Montgomery form (R = 2^256). A level above the caching level keeps its
+data in the store's codeword files, `H_X/<level>_<i>` and `H_Y/<level>_<i>`:
+128 little-endian 32-byte values mod p each. This module decodes both
+without the program's own codecs, so that the check does not lean on what
+it judges.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+CHUNKS = 128
 
 
 def limb_ints(t: torch.Tensor) -> np.ndarray:
@@ -33,23 +40,48 @@ def jacobian(pts, p: int) -> list[tuple[int, int, int]]:
             for x, y, z in zip(xs, ys, zs)]
 
 
-def server_state(server, p: int) -> dict:
+def code_ints(store: str, side: str, level: int) -> np.ndarray:
+    """A level's codeword files `<store>/<side>/<level>_<i>`, i < 2^level,
+    -> (2^level, 128) object array of Python ints. Every element of a
+    missing or short file is None, so that it counts as differing."""
+    out = np.full((1 << level, CHUNKS), None, dtype=object)
+    for i in range(out.shape[0]):
+        try:
+            with open(os.path.join(store, side, f"{level}_{i}"), "rb") as f:
+                raw = f.read(32 * CHUNKS)
+        except FileNotFoundError:
+            continue
+        if len(raw) == 32 * CHUNKS:
+            out[i] = [int.from_bytes(raw[32 * k:32 * k + 32], "little")
+                      for k in range(CHUNKS)]
+    return out
+
+
+def server_state(server, p: int, q: int, store: str) -> dict:
     """The levels, the MAC plane of U, the write step and the block files
-    of a `PorlaServer` whose levels are all held in memory."""
+    of a `PorlaServer` whose store directory is `store`. A level in files
+    gives its p lane as read and its q lane as that value mod q, as the
+    server loads it; its MAC and alignment planes are on the device."""
     levels = []
-    for lv in server.levels:
+    for k, lv in enumerate(server.levels):
         if lv.empty:
             levels.append(None)
             continue
         sides = {}
-        for name in ("x", "y"):
+        for name, files in (("x", "H_X"), ("y", "H_Y")):
             planes = getattr(lv, name)
-            if planes.data is None:
-                raise ValueError("a level in files: the check reads levels "
-                                 "held in memory only")
-            sides[name] = {"p": limb_ints(planes.data.p),
-                           "q": limb_ints(planes.data.q),
-                           "c": jacobian(planes.points["c"], p),
+            if planes.data is not None:
+                lanes = {"p": limb_ints(planes.data.p),
+                         "q": limb_ints(planes.data.q)}
+            elif lv.file_backed:
+                v = code_ints(store, files, k)
+                vq = np.empty_like(v)
+                vq.reshape(-1)[:] = [None if x is None else x % q
+                                     for x in v.reshape(-1)]
+                lanes = {"p": v, "q": vq}
+            else:
+                raise ValueError(f"level {k} holds no data plane")
+            sides[name] = {**lanes, "c": jacobian(planes.points["c"], p),
                            "a": jacobian(planes.points["a"], p)}
         levels.append(sides)
     return {"write_step": server.write_step, "levels": levels,

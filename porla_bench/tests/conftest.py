@@ -35,11 +35,15 @@ def card():
     return torch.device("cuda")
 
 
-def make_root(dest: str, n: int, audit_write_step: int) -> str:
+def make_root(dest: str, n: int, audit_write_step: int,
+              top_caching_level: int | None = None,
+              update_write_step: int | None = None) -> str:
     """A copy of BENCHMARK.json and the benchmark's data files under
     `dest`, every configuration at n blocks and the audit mix's set-up at
     `audit_write_step`, with one cell more, `kzg-n1024.audit`, so that the
-    tests drive KZG's audit path through the harness too."""
+    tests drive KZG's audit path through the harness too. Given, every
+    configuration takes `top_caching_level` (the levels above it in files)
+    and the update mix's set-up `update_write_step`."""
     src = os.path.join(REPO, "porla_bench")
     for d in ("configs", "traffic", "metrics"):
         shutil.copytree(os.path.join(src, d),
@@ -51,15 +55,22 @@ def make_root(dest: str, n: int, audit_write_step: int) -> str:
         with open(path) as f:
             cfg = json.load(f)
         cfg["num_blocks"] = n
+        if top_caching_level is not None:
+            cfg["top_caching_level"] = top_caching_level
         with open(path, "w") as f:
             json.dump(cfg, f)
-    path = os.path.join(dest, "porla_bench", "traffic", "audit.json")
-    with open(path) as f:
-        mix = json.load(f)
-    mix["setup"]["write_step"] = audit_write_step
-    mix["check_audits"] = 2
-    with open(path, "w") as f:
-        json.dump(mix, f)
+    for name, write_step in (("audit", audit_write_step),
+                             ("update", update_write_step)):
+        if write_step is None:
+            continue
+        path = os.path.join(dest, "porla_bench", "traffic", name + ".json")
+        with open(path) as f:
+            mix = json.load(f)
+        mix["setup"]["write_step"] = write_step
+        if name == "audit":
+            mix["check_audits"] = 2
+        with open(path, "w") as f:
+            json.dump(mix, f)
     if "kzg-n1024.audit" not in {w["name"] for w in bench["workloads"]}:
         bench["workloads"].append({"name": "kzg-n1024.audit",
                                    "config": "kzg-n1024", "traffic": "audit",
@@ -75,3 +86,14 @@ def make_root(dest: str, n: int, audit_write_step: int) -> str:
 @pytest.fixture(scope="session")
 def small_root(tmp_path_factory):
     return make_root(str(tmp_path_factory.mktemp("bench")), 8, 5)
+
+
+@pytest.fixture(scope="session")
+def files_root(tmp_path_factory):
+    """n = 16 with caching level 2, so levels 3 and 4 are in files. The
+    update mix's set-up stops at write step 7, so the window's first
+    update folds levels 0-2 into level 3, in files; the audit mix's at
+    write step 13, so an audit reads levels 0 and 2 from memory and 3 and
+    4 from files."""
+    return make_root(str(tmp_path_factory.mktemp("bench_files")), 16, 13,
+                     top_caching_level=2, update_write_step=7)

@@ -2,7 +2,8 @@
 2 and prints no result, and the harness raises rather than fall back to
 the CPU. On the card (`-m card`), the control at a size a test can hold:
 a run of each cell kind at n = 64 is correct as it is and incorrect with
-each fault planted."""
+each fault planted, and so with levels 5 and 6 in files, where an update
+folds into level 5 and an altered codeword file must be seen."""
 
 from __future__ import annotations
 
@@ -56,3 +57,20 @@ def test_control_on_the_card(card, tmp_path, workload, fault):
                          root=root, fault=fault)
     assert r["correct"] == (fault is None), r
     assert r["device"]["platform"] == "gpu"
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("workload,fault", [
+    ("ipa-n1024.update", None), ("ipa-n1024.update", "altered_file"),
+    ("kzg-n1024.update", None), ("kzg-n1024.update", "altered_file"),
+    ("ipa-n1024.audit", None), ("kzg-n1024.audit", None),
+])
+def test_files_control_on_the_card(card, tmp_path, workload, fault):
+    from porla_bench import harness
+    root = make_root(str(tmp_path), 64, 45, top_caching_level=4,
+                     update_write_step=31)
+    r = harness.run_cell(workload, 2**31 + 23, 3, False, device=str(card),
+                         root=root, fault=fault)
+    assert r["correct"] == (fault is None), r
+    if fault is not None:
+        assert r["checks"]["data"]["value"] > 0, r["checks"]

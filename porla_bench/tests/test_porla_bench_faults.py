@@ -45,3 +45,22 @@ def test_each_fault_makes_the_run_incorrect(small_root, workload, fault,
     assert not r["correct"], r
     named = {k: c["value"] for k, c in r["checks"].items()}
     assert any(v > 0 for k, v in named.items() if k != "failed"), named
+
+
+@pytest.mark.parametrize("workload", ["ipa-n1024.update", "kzg-n1024.update",
+                                      "ipa-n1024.audit", "kzg-n1024.audit"])
+def test_runs_with_levels_in_files_are_correct(files_root, workload):
+    # update: the window's first op forms level 3 in files through the
+    # streamed fold; audit: every audit gathers levels 3 and 4 from files
+    r = _run(files_root, workload, 1)
+    assert r["correct"], r
+    assert r["attempted"] >= 1 and r["failed"] == 0
+    assert all(c["value"] == 0 for c in r["checks"].values())
+
+
+@pytest.mark.parametrize("workload", ["ipa-n1024.update", "kzg-n1024.update"])
+def test_an_altered_codeword_file_makes_the_run_incorrect(files_root,
+                                                          workload):
+    r = _run(files_root, workload, 1, "altered_file")
+    assert not r["correct"], r
+    assert r["checks"]["data"]["value"] > 0, r["checks"]
