@@ -15,11 +15,18 @@
 // A plain C ABI, bound with ctypes (runtime/lib.py), which builds this
 // file with g++ at first use.
 
+#include <fcntl.h>
+#include <pthread.h>
+#include <unistd.h>
+
 #include <atomic>
 #include <cerrno>
+#include <condition_variable>
 #include <cstdint>
-#include <cstdio>
 #include <cstring>
+#include <functional>
+#include <mutex>
+#include <string>
 #include <thread>
 #include <vector>
 
@@ -128,9 +135,87 @@ void aes128_expand_ni(const uint8_t key[16], AesKeyNI* out) {
 }
 #endif
 
-// Run fn(i, path) for each of the n NUL-separated paths on `threads`
-// workers (8 when not positive, never more than n), each taking the next
-// index from a shared counter. Returns how many calls returned true.
+// Workers kept for the life of the process: a batch of files wakes them
+// in place of starting threads of its own, since on a sandboxed host
+// starting a thread costs more than reading a small file (there, the 2 x 32
+// thread starts of an audit's two batched reads took about 18 ms and the
+// 128 reads behind them under 2: PERF.md section 6). One batch runs at a
+// time; its caller works too.
+class Pool {
+ public:
+  // Run fn(i) for i in [0, n) on `threads` workers in all (the caller
+  // included), each taking the next index from a shared counter.
+  void run(int64_t n, int64_t threads, const std::function<void(int64_t)>& fn) {
+    std::lock_guard<std::mutex> one_batch(batch_mu_);
+    std::unique_lock<std::mutex> lk(mu_);
+    while (static_cast<int64_t>(workers_.size()) < threads - 1) {
+      int64_t id = static_cast<int64_t>(workers_.size());
+      workers_.emplace_back([this, id, seen = gen_] { loop(id, seen); });
+    }
+    job_ = &fn;
+    n_ = n;
+    next_.store(0);
+    want_ = active_ = threads - 1;
+    ++gen_;
+    lk.unlock();
+    wake_.notify_all();
+    for (int64_t i; (i = next_.fetch_add(1)) < n;) fn(i);
+    lk.lock();
+    done_.wait(lk, [&] { return active_ == 0; });
+    job_ = nullptr;
+  }
+
+ private:
+  void loop(int64_t id, int64_t seen) {
+    std::unique_lock<std::mutex> lk(mu_);
+    for (;;) {
+      wake_.wait(lk, [&] { return gen_ != seen; });
+      seen = gen_;
+      if (id >= want_) continue;
+      lk.unlock();
+      for (int64_t i; (i = next_.fetch_add(1)) < n_;) (*job_)(i);
+      lk.lock();
+      if (--active_ == 0) done_.notify_one();
+    }
+  }
+
+  std::mutex batch_mu_, mu_;
+  std::condition_variable wake_, done_;
+  std::vector<std::thread> workers_;
+  const std::function<void(int64_t)>* job_ = nullptr;
+  int64_t n_ = 0, want_ = 0, active_ = 0, gen_ = 0;
+  std::atomic<int64_t> next_{0};
+};
+
+std::atomic<Pool*>& process_pool() {
+  static std::atomic<Pool*> p{nullptr};
+  return p;
+}
+
+// The process's pool, made at first use and never destroyed (its workers
+// wait until the process ends). A forked child has none of its parent's
+// threads, so it forgets the pool and makes its own.
+Pool* pool() {
+  static const int forget_on_fork = pthread_atfork(
+      nullptr, nullptr, [] { process_pool().store(nullptr); });
+  (void)forget_on_fork;
+  Pool* p = process_pool().load();
+  if (!p) {
+    Pool* fresh = new Pool;
+    if (process_pool().compare_exchange_strong(p, fresh))
+      p = fresh;
+    else
+      delete fresh;
+  }
+  return p;
+}
+
+// Run fn(i, dir, name) for each of the n NUL-separated paths on `threads`
+// workers (8 when not positive, never more than n). Where every path lies
+// in one directory, that directory is opened once and `name` is the path's
+// last component under `dir`, so that a file's open walks one component;
+// otherwise `dir` is AT_FDCWD and `name` the whole path. Returns how many
+// calls returned true.
 template <class Fn>
 int64_t for_each_file(const char* paths, int64_t n, int32_t threads, Fn fn) {
   std::vector<const char*> ps(n);
@@ -138,18 +223,48 @@ int64_t for_each_file(const char* paths, int64_t n, int32_t threads, Fn fn) {
     ps[i] = paths;
     paths += std::strlen(paths) + 1;
   }
+  int dir = AT_FDCWD;
+  size_t cut = 0;
+  if (n > 0) {
+    const char* slash = std::strrchr(ps[0], '/');
+    cut = slash ? static_cast<size_t>(slash - ps[0]) + 1 : 0;
+    for (int64_t i = 1; cut && i < n; ++i)
+      if (std::strncmp(ps[i], ps[0], cut) != 0 ||
+          std::strchr(ps[i] + cut, '/'))
+        cut = 0;
+    if (cut) {
+      std::string d(ps[0], cut);
+      dir = open(d.c_str(), O_RDONLY | O_DIRECTORY | O_CLOEXEC);
+      if (dir < 0) dir = AT_FDCWD, cut = 0;
+    }
+  }
   std::atomic<int64_t> ok{0};
-  std::atomic<int64_t> next{0};
   int64_t nt = threads > 0 ? threads : 8;
   if (nt > n) nt = n;
-  std::vector<std::thread> ws;
-  for (int64_t t = 0; t < nt; ++t)
-    ws.emplace_back([&] {
-      for (int64_t i; (i = next.fetch_add(1)) < n;)
-        if (fn(i, ps[i])) ok.fetch_add(1);
-    });
-  for (auto& w : ws) w.join();
+  auto one = [&](int64_t i) {
+    if (fn(i, dir, ps[i] + cut)) ok.fetch_add(1);
+  };
+  if (nt <= 1) {
+    for (int64_t i = 0; i < n; ++i) one(i);
+  } else {
+    pool()->run(n, nt, one);
+  }
+  if (dir != AT_FDCWD) close(dir);
   return ok.load();
+}
+
+// Move exactly `size` bytes with pread/pwrite at offset 0; false on a
+// short file or an error.
+template <class Op, class Buf>
+bool whole(Op op, int fd, Buf buf, size_t size) {
+  size_t done = 0;
+  while (done < size) {
+    ssize_t k = op(fd, buf + done, size - done, static_cast<off_t>(done));
+    if (k < 0 && errno == EINTR) continue;
+    if (k <= 0) return false;
+    done += static_cast<size_t>(k);
+  }
+  return true;
 }
 
 }  // namespace
@@ -194,34 +309,37 @@ void porla_prg_expand(const uint8_t key[16], uint64_t counter, uint8_t* out,
 // Returns number of files read successfully.
 int64_t porla_read_files(const char* paths, int64_t n, int64_t record_size,
                          uint8_t* out, int32_t threads) {
-  return for_each_file(paths, n, threads, [=](int64_t i, const char* path) {
-    FILE* f = std::fopen(path, "rb");
-    if (!f) return false;
-    size_t r = std::fread(out + i * record_size, 1,
-                          static_cast<size_t>(record_size), f);
-    std::fclose(f);
-    return r == static_cast<size_t>(record_size);
+  size_t size = static_cast<size_t>(record_size);
+  return for_each_file(paths, n, threads,
+                       [=](int64_t i, int dir, const char* name) {
+    int fd = openat(dir, name, O_RDONLY | O_CLOEXEC);
+    if (fd < 0) return false;
+    bool ok = whole(pread, fd, out + i * record_size, size);
+    close(fd);
+    return ok;
   });
 }
 
 // Write `n` equally-sized records from a contiguous buffer to files.
 int64_t porla_write_files(const char* paths, int64_t n, int64_t record_size,
                           const uint8_t* data, int32_t threads) {
-  return for_each_file(paths, n, threads, [=](int64_t i, const char* path) {
-    FILE* f = std::fopen(path, "wb");
-    if (!f) return false;
-    size_t w = std::fwrite(data + i * record_size, 1,
-                           static_cast<size_t>(record_size), f);
-    std::fclose(f);
-    return w == static_cast<size_t>(record_size);
+  size_t size = static_cast<size_t>(record_size);
+  return for_each_file(paths, n, threads,
+                       [=](int64_t i, int dir, const char* name) {
+    int fd = openat(dir, name, O_WRONLY | O_CREAT | O_TRUNC | O_CLOEXEC,
+                    0666);
+    if (fd < 0) return false;
+    bool ok = whole(pwrite, fd, data + i * record_size, size);
+    return close(fd) == 0 && ok;
   });
 }
 
 // Delete `n` files using `threads` workers; a missing file counts as
 // deleted. Returns the number of files that are gone.
 int64_t porla_delete_files(const char* paths, int64_t n, int32_t threads) {
-  return for_each_file(paths, n, threads, [](int64_t, const char* path) {
-    return std::remove(path) == 0 || errno == ENOENT;
+  return for_each_file(paths, n, threads,
+                       [](int64_t, int dir, const char* name) {
+    return unlinkat(dir, name, 0) == 0 || errno == ENOENT;
   });
 }
 

@@ -10,7 +10,11 @@ File formats (reference porla/Utils/utils.h):
   a mod-LCM value as its CRT residue pair [p lane 32 B LE | q lane 32 B LE].
 
 Every multi-file read, write and delete goes through the native runtime's
-pool of threads (`runtime/lib.py`). Limb arrays are int64 tensors on any device;
+pool of threads (`runtime/lib.py`), inside a `store.read`, `store.write` or
+`store.delete` span that carries the batch's `files` (and `bytes` and
+`what`: "codes256", "codes512", "staged" or "blocks"); the read span holds
+the file reads alone, not the copy to the device or the widening. Limb
+arrays are int64 tensors on any device;
 a file's LE 16-bit limbs travel as raw bytes (through a pinned host buffer
 when the device is a card) and are widened to int64 on the device, as
 int16 values masked to 16 bits (torch does no uint16 arithmetic).
@@ -26,6 +30,7 @@ from porla_tpu_torch.config import BLOCK_SIZE, NUM_CHUNKS
 from porla_tpu_torch.fields import limbs, mont
 from porla_tpu_torch.ntt.engine import MOD_P, CrtArray
 from porla_tpu_torch.runtime import lib as rt
+from porla_tpu_torch.utils import trace
 
 _REC_256 = NUM_CHUNKS * 32
 _REC_512 = NUM_CHUNKS * 64
@@ -69,24 +74,43 @@ class BlockStore:
         made one): it grows to the largest batch of files moved at once."""
         return self._host.numel() if self._pinned else 0
 
-    def _read_limbs(self, paths: list[str], record_size: int,
-                    device) -> torch.Tensor:
+    def _read_limbs(self, paths: list[str], record_size: int, device,
+                    what: str) -> torch.Tensor:
         """The files' records as (len(paths), NUM_CHUNKS, record_size / 64
         * 16) int64 limbs on `device`: the bytes go to the device as they
         are and are widened there."""
         device = torch.device(device)
-        buf = self._buffer(len(paths) * record_size, device.type == "cuda")
-        rt.read_files(paths, record_size, buf.numpy())
+        nbytes = len(paths) * record_size
+        buf = self._buffer(nbytes, device.type == "cuda")
+        if trace.enabled() and device.type == "cuda":
+            # the span's closing wait for the card then holds no work
+            # launched before the read
+            torch.cuda.synchronize(device)
+        with trace.span("store.read", files=len(paths), bytes=nbytes,
+                        what=what):
+            rt.read_files(paths, record_size, buf.numpy())
+            trace.count("store.files_read", len(paths))
+            trace.count("store.bytes_read", nbytes)
         raw = buf.to(device) if device.type == "cuda" else buf
         return bytes_limbs(raw).view(len(paths), NUM_CHUNKS, -1)
 
+    def _write_files(self, paths: list[str], record_size: int, data,
+                     what: str) -> None:
+        """Write the records of a contiguous host buffer to the files."""
+        nbytes = len(paths) * record_size
+        with trace.span("store.write", files=len(paths), bytes=nbytes,
+                        what=what):
+            rt.write_files(paths, record_size, data)
+            trace.count("store.files_written", len(paths))
+            trace.count("store.bytes_written", nbytes)
+
     def _write_many(self, paths: list[str], record_size: int,
-                    data: torch.Tensor) -> None:
+                    data: torch.Tensor, what: str) -> None:
         """Write the rows of a uint8 tensor (any device) to the files."""
         flat = data.reshape(-1)
         if flat.is_cuda:
             flat = self._buffer(flat.numel(), True).copy_(flat)
-        rt.write_files(paths, record_size, flat.numpy())
+        self._write_files(paths, record_size, flat.numpy(), what)
 
     # --- raw data blocks (U/) ---------------------------------------------
 
@@ -100,7 +124,8 @@ class BlockStore:
 
     def write_blocks(self, indices, datas: bytes) -> None:
         """Batch-write raw 4096-byte blocks from one contiguous buffer."""
-        rt.write_files([self._u_path(i) for i in indices], BLOCK_SIZE, datas)
+        self._write_files([self._u_path(i) for i in indices], BLOCK_SIZE,
+                          datas, "blocks")
 
     def read_block(self, index: int) -> bytes:
         with open(self._u_path(index), "rb") as f:
@@ -118,7 +143,7 @@ class BlockStore:
         `device`; raw chunks are arbitrary 256-bit values, reduced
         canonically in each lane there."""
         arr = self._read_limbs([self._u_path(i) for i in indices],
-                               BLOCK_SIZE, device)
+                               BLOCK_SIZE, device, "blocks")
         return CrtArray(mont.mod_reduce(arr, MOD_P),
                         mont.mod_reduce(arr, mod_q))
 
@@ -146,7 +171,7 @@ class BlockStore:
         """Batch-write (N, NUM_CHUNKS, 16) canonical limb values as 256-bit
         codeword files (serialize_error_code_256b layout, utils.h:496-507)."""
         self._write_many([self._code_path(is_x, level, i) for i in indices],
-                         _REC_256, limb_bytes(arr))
+                         _REC_256, limb_bytes(arr), "codes256")
 
     def read_codes_256(self, is_x: bool, level: int, indices,
                        device="cpu") -> torch.Tensor:
@@ -154,7 +179,7 @@ class BlockStore:
         on `device`."""
         return self._read_limbs(
             [self._code_path(is_x, level, i) for i in indices], _REC_256,
-            device)
+            device, "codes256")
 
     def write_code_512(self, is_x: bool, level: int, index: int,
                        chunks: list[int]) -> None:
@@ -176,14 +201,15 @@ class BlockStore:
         limbs) pairs, little-endian."""
         self._write_many([self._code_path(is_x, level, i) for i in indices],
                          _REC_512, torch.cat([limb_bytes(lo),
-                                              limb_bytes(hi)], -1))
+                                              limb_bytes(hi)], -1),
+                         "codes512")
 
     def read_codes_512(self, is_x: bool, level: int, indices,
                        device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
         """Batch-read 512-bit files -> (lo, hi) (N, C, 16) limbs."""
         arr = self._read_limbs(
             [self._code_path(is_x, level, i) for i in indices], _REC_512,
-            device)
+            device, "codes512")
         return (arr[..., :limbs.NLIMBS].contiguous(),
                 arr[..., limbs.NLIMBS:].contiguous())
 
@@ -199,13 +225,14 @@ class BlockStore:
         """Batch-write (N, NUM_CHUNKS, 16)-limb CRT lane pairs."""
         self._write_many([self._stg_path(tag, i) for i in indices], _REC_512,
                          torch.cat([limb_bytes(data.p),
-                                    limb_bytes(data.q)], -1))
+                                    limb_bytes(data.q)], -1), "staged")
 
     def read_staged(self, tag: str, indices, device="cpu") -> CrtArray:
         arr = self._read_limbs([self._stg_path(tag, i) for i in indices],
-                               _REC_512, device)
+                               _REC_512, device, "staged")
         return CrtArray(arr[..., :limbs.NLIMBS].contiguous(),
                         arr[..., limbs.NLIMBS:].contiguous())
 
     def delete_staged(self, tag: str, n: int) -> None:
-        rt.delete_files([self._stg_path(tag, i) for i in range(n)])
+        with trace.span("store.delete", files=n):
+            rt.delete_files([self._stg_path(tag, i) for i in range(n)])

@@ -3,12 +3,14 @@ porla_rt.cc built with g++ at first use) against its numpy plain version
 (`crypto.aes.ecb_encrypt_plain`) and the reference package
 (`porla_tpu.crypto.aes`), byte for byte, mirroring
 tests/test_runtime_native.py: AES-128 ECB, the PRG expansion (mid-stream
-counter included), the MAC PRF, batched file reads, writes and deletes,
-and a build that fails raises."""
+counter included), the MAC PRF, batched file reads, writes and deletes
+(in one directory and across several, from concurrent callers and a
+forked child), and a build that fails raises."""
 
 import os
 import random
 import struct
+import threading
 
 import numpy as np
 import pytest
@@ -83,6 +85,81 @@ def test_batched_file_io_roundtrip(tmp_path):
     assert out.tobytes() == data[5 * rec:10 * rec]
     rt.write_files(paths[:2], rec, np.frombuffer(data[-2 * rec:], np.uint8))
     assert rt.read_files(paths[:2], rec).tobytes() == data[-2 * rec:]
+
+
+@pytest.mark.parametrize("layout", ["one_dir", "two_dirs", "relative"])
+@pytest.mark.parametrize("threads", [1, 4, 32])
+def test_batched_io_in_and_across_directories(tmp_path, monkeypatch, layout,
+                                              threads):
+    """A batch in one directory opens its files under that directory; one
+    that spans directories, or relative paths, opens each path whole. The
+    workers are the process's pool, reused from batch to batch."""
+    for d in ("H_X", "H_Y"):
+        os.mkdir(tmp_path / d)
+    names = [f"{'H_X' if i % 2 or layout == 'one_dir' else 'H_Y'}/14_{i}"
+             for i in range(40)]
+    if layout == "relative":
+        monkeypatch.chdir(tmp_path)
+        paths = names
+    else:
+        paths = [str(tmp_path / n) for n in names]
+    rec = 64
+    data = os.urandom(rec * len(paths))
+    rt.write_files(paths, rec, data, threads=threads)
+    for k in range(5):
+        part = slice(k, 40, 5)
+        want = b"".join(data[i * rec:(i + 1) * rec]
+                        for i in range(40)[part])
+        assert rt.read_files(paths[part], rec,
+                             threads=threads).tobytes() == want
+    with open(tmp_path / names[7], "rb") as f:
+        assert f.read() == data[7 * rec:8 * rec]
+    rt.delete_files(paths, threads=threads)
+    assert os.listdir(tmp_path / "H_X") == os.listdir(tmp_path / "H_Y") == []
+
+
+def test_short_file_fails_its_read(tmp_path):
+    paths = [str(tmp_path / f"s{i}") for i in range(3)]
+    rt.write_files(paths, 32, bytes(96))
+    rt.write_files(paths[1:2], 16, bytes(16))
+    with pytest.raises(IOError, match="2/3"):
+        rt.read_files(paths, 32)
+
+
+def test_concurrent_batches_read_their_own_records(tmp_path):
+    paths = [str(tmp_path / f"c{i}") for i in range(64)]
+    rec = 256
+    data = os.urandom(rec * 64)
+    rt.write_files(paths, rec, data)
+    bad = []
+
+    def reader(seed):
+        rng = random.Random(seed)
+        for _ in range(50):
+            ix = rng.sample(range(64), 16)
+            got = rt.read_files([paths[i] for i in ix], rec).tobytes()
+            if got != b"".join(data[i * rec:(i + 1) * rec] for i in ix):
+                bad.append(seed)
+
+    threads = [threading.Thread(target=reader, args=(s,)) for s in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert bad == []
+
+
+def test_a_forked_child_makes_its_own_workers(tmp_path):
+    paths = [str(tmp_path / f"k{i}") for i in range(16)]
+    data = os.urandom(16 * 128)
+    rt.write_files(paths, 128, data, threads=8)   # the parent's pool exists
+    pid = os.fork()
+    if pid == 0:
+        ok = rt.read_files(paths, 128, threads=8).tobytes() == data
+        os._exit(0 if ok else 1)
+    _, status = os.waitpid(pid, 0)
+    assert os.waitstatus_to_exitcode(status) == 0
+    assert rt.read_files(paths, 128, threads=8).tobytes() == data
 
 
 def test_batched_delete(tmp_path):

@@ -4,7 +4,13 @@ H_X/, H_Y/ and STG/ files are byte-identical, each package reads the
 other's files back to the same limbs, and raw U/ blocks load to the same
 CRT lanes. Limbs are random 16-bit values with the edges 0, 0x7FFF, 0x8000
 and 0xFFFF in every chunk (the port widens a file's limbs through int16).
-Tolerance: zero."""
+Tolerance: zero.
+
+Then the spans of the store's file IO: every batched read, write and
+delete records a `store.read`, `store.write` or `store.delete` span with
+its `files`, `bytes` and `what` while tracing is on, and nothing while it
+is off; an audit of a server with levels in files records one read per
+file-backed (level, side) under `server.audit.gather`."""
 
 import os
 
@@ -14,9 +20,15 @@ import torch
 
 from porla_tpu.ntt import engine as jengine
 from porla_tpu.storage.store import BlockStore as JStore
+from porla_tpu_torch.config import PorlaConfig
 from porla_tpu_torch.fields import limbs as L
 from porla_tpu_torch.ntt import engine
+from porla_tpu_torch.protocol import auditing
+from porla_tpu_torch.protocol.client import PorlaClient
+from porla_tpu_torch.protocol.server import PorlaServer
+from porla_tpu_torch.protocol.transport import InProcTransport
 from porla_tpu_torch.storage.store import BlockStore
+from porla_tpu_torch.utils import trace
 
 torch.set_num_threads(1)     # small tensors; xdist runs files side by side
 
@@ -127,3 +139,110 @@ def test_read_blocks_crt_matches_reference(stores, scheme):
     want = ref.read_blocks_crt(idx, jctx.mod_q)
     assert (L.to_numpy(got.p) == np.asarray(want.p)).all()
     assert (L.to_numpy(got.q) == np.asarray(want.q)).all()
+
+
+def _store_spans(fn) -> tuple[list, dict]:
+    """The `store.*` spans and the counters that `fn()` records."""
+    trace.reset()
+    trace.enable(True)
+    try:
+        fn()
+        return ([sp for sp in trace.spans() if sp["name"].startswith("store.")],
+                {k.rsplit("/", 1)[-1]: v["count"]
+                 for k, v in trace.summary().items()
+                 if "count" in v and "/store." in "/" + k})
+    finally:
+        trace.enable(False)
+        trace.reset()
+
+
+def _io_cases(st: BlockStore):
+    """(what it does, the span it records: name, files, bytes, what)."""
+    crt = engine.CrtArray(L.to_torch(_limbs(4)), L.to_torch(_limbs(5)))
+    lo, hi = L.to_torch(_limbs(2)), L.to_torch(_limbs(3))
+    raw = np.random.default_rng(8).integers(0, 256, N * 4096,
+                                            dtype=np.uint8).tobytes()
+    mod_q = engine.NttContext(8, "ipa").mod_q
+    return {
+        "write_codes_256": (lambda: st.write_codes_256(True, 5, IDX, lo),
+                            ("store.write", N, N * 4096, "codes256")),
+        "read_codes_256": (lambda: st.read_codes_256(True, 5, IDX),
+                           ("store.read", N, N * 4096, "codes256")),
+        "write_codes_512": (lambda: st.write_codes_512(False, 9, IDX, lo, hi),
+                            ("store.write", N, N * 8192, "codes512")),
+        "read_codes_512": (lambda: st.read_codes_512(False, 9, IDX[:3]),
+                           ("store.read", 3, 3 * 8192, "codes512")),
+        "write_staged": (lambda: st.write_staged("crx", IDX, crt),
+                         ("store.write", N, N * 8192, "staged")),
+        "read_staged": (lambda: st.read_staged("crx", IDX[::-1]),
+                        ("store.read", N, N * 8192, "staged")),
+        "write_blocks": (lambda: st.write_blocks(range(N), raw),
+                         ("store.write", N, N * 4096, "blocks")),
+        "read_blocks_crt": (lambda: st.read_blocks_crt(range(2), mod_q),
+                            ("store.read", 2, 2 * 4096, "blocks")),
+        "delete_staged": (lambda: st.delete_staged("crx", 12),
+                          ("store.delete", 12, None, None)),
+    }
+
+
+@pytest.mark.parametrize("op", [
+    "write_codes_256", "read_codes_256", "write_codes_512", "read_codes_512",
+    "write_staged", "read_staged", "write_blocks", "read_blocks_crt",
+    "delete_staged"])
+def test_file_io_records_its_span(tmp_path, op):
+    st = BlockStore(str(tmp_path))
+    cases = _io_cases(st)
+    # the files each case reads or deletes, written with tracing off
+    for name in ("write_codes_256", "write_codes_512", "write_staged",
+                 "write_blocks"):
+        cases[name][0]()
+    fn, (name, files, nbytes, what) = cases[op]
+    spans, counters = _store_spans(fn)
+    assert [sp["name"] for sp in spans] == [name]
+    want = {"files": files} if name == "store.delete" else \
+        {"files": files, "bytes": nbytes, "what": what}
+    assert spans[0]["attrs"] == want
+    kind = {"store.read": "read", "store.write": "written"}.get(name)
+    if kind is None:
+        assert counters == {}
+    else:
+        assert counters == {f"store.files_{kind}": files,
+                            f"store.bytes_{kind}": nbytes}
+    # tracing off: the same call records nothing
+    trace.reset()
+    fn()
+    assert trace.spans() == [] and trace.summary() == {}
+
+
+def test_audit_reads_each_file_backed_side_once(tmp_path):
+    # n = 16 with caching level 2: at write step 7 levels 0-2 are in
+    # memory and the top, level 4, is in its codeword files
+    n = 16
+    cfg = PorlaConfig(scheme="ipa", top_caching_level=2,
+                      storage_dir=str(tmp_path))
+    server = PorlaServer(cfg, device="cpu")
+    client = PorlaClient(cfg, InProcTransport(server),
+                         data_seed=bytes([3] * 16), device="cpu")
+    client.initialize(n)
+    for i in range(7):
+        client.update(i + 1)
+    assert server.write_step == 7
+    seed = bytes([5] * 16)
+    spans, counters = _store_spans(lambda: client.audit(seed=seed))
+    gather = "client.audit/server.audit/server.audit.gather/store.read"
+    reads = [sp for sp in spans if sp["path"] == gather]
+    assert reads == spans        # nothing else of the store ran
+    plan = auditing.build_audit_plan(seed, 7, n, server.height)
+    sides: dict = {}
+    for smp in plan.samples:
+        if server.levels[smp.level].file_backed:
+            key = (smp.level, smp.is_x)
+            sides[key] = sides.get(key, 0) + 1
+    assert set(sides) == {(4, True), (4, False)}
+    assert sorted(sp["attrs"]["files"] for sp in reads) == \
+        sorted(sides.values())
+    assert sum(sides.values()) == 32
+    assert all(sp["attrs"] == {"files": sp["attrs"]["files"],
+                               "bytes": 4096 * sp["attrs"]["files"],
+                               "what": "codes256"} for sp in reads)
+    assert counters == {"store.files_read": 32, "store.bytes_read": 32 * 4096}
