@@ -17,7 +17,7 @@
    events (median after a warm-up). K1 per CRT lane at (1024, 128, 16) (one launch, beside the
    same stages as one-stage launches) and at n = 2^14 (two passes); K2 GLV
    at 1024 lanes and at 1 (an update's); K4 at each of the path's shapes
-   (per lane and in groups at the commit shape, the two IPA shapes, the
+   (per lane and in groups at the commit shape, the IPA rounds' shape, the
    complements) and at one group too wide for a block (K4 then group_sum);
    group_sum at GS_SHAPES (the audit's part sums, odd widths, 2^14 points
    in one group spread over 128 blocks, and the one- and two-add groups
@@ -39,7 +39,10 @@
    SRS (the server's commitments, 131072 lanes in 1024 groups and 128 in
    one) and on h (the client's complements), group_sum at GS_SHAPES,
    point_add at PA_SHAPES and K7 at 1024 lanes and 64 bits, as on
-   secp256k1.
+   secp256k1. Then the IPA prover and verifier alone (`check_ipa`): the
+   proof byte for byte the golden prover's, tampered proofs refused, the
+   launches of a prove, a verify and an audit at n = 16 counted, and the
+   MAC check's alpha products against the golden model.
 3. Runs the protocol at n = 1024 blocks on the card, first the IPA scheme
    (secp256k1), then the KZG scheme (BN254): initialize, an audit, 4
    updates, another audit (both must verify), then a corrupted codeword
@@ -48,7 +51,7 @@
    against it that verify. In each scheme K1-K4's and group_sum's launch
    counts must rise up to the second audit, initialize must launch K1
    exactly 4 times (two CRT arrays of two lanes) and no update any, and
-   point_add must be launched 5 times an update and once an audit. K3 is
+   point_add must be launched 5 times an update and twice an audit. K3 is
    then checked and timed at the widest butterfly the IPA updates
    launched.
 4. Runs the MSM entry point (see `run_msm`).
@@ -544,8 +547,7 @@ def fb_edge_scalars(rng, B, nbits, n):
 FB_SHAPES = (
     ("commit_lanes", N_BLOCKS * 128, 0, 128, 256),        # fb_scalar_mul
     ("commit_blocks", N_BLOCKS * 128, N_BLOCKS, 128, 256),
-    ("ipa_msm2", 256, 2, 128, 256),
-    ("ipa_msm", 128, 1, 128, 256),
+    ("ipa_round", 256, 2, 256, 256),     # ipa's rounds and final MSM
     ("complements", 2 * N_BLOCKS, 0, 1, 128),
     ("wide_group", 2 * N_BLOCKS, 1, 128, 256),
 )
@@ -563,7 +565,8 @@ KZG_FB_SHAPES = (
 
 def check_k4(dev, rng, ops, shapes=FB_SHAPES, gens_aff=None):
     """K4 at each of `shapes` over the bases `gens_aff` (the IPA generators
-    by default; a random point where a shape has one base): bit-identical
+    by default, random points past them; a random point where a shape has
+    one base): bit-identical
     to its plain version, the edge lanes (or the first groups) equal to the
     golden model, timed with its plain version and bound. The wide group
     must be one K4 launch and one group_sum, with no plain torch point op.
@@ -577,6 +580,8 @@ def check_k4(dev, rng, ops, shapes=FB_SHAPES, gens_aff=None):
     if gens_aff is None:
         gens_aff = pedersen.ipa_generators()[2]
     h = rand_points(rng, cv, 1)
+    more = max(sh[3] for sh in shapes) - len(gens_aff)
+    gens_aff = list(gens_aff) + rand_points(rng, cv, max(more, 0))
     rows = []
     for name, B, nout, ng, nbits in shapes:
         bases = gens_aff[:ng] if ng > 1 else h
@@ -1424,6 +1429,125 @@ def check_msm_parts(dev, ops):
     return {"check": "msm_parts", "lanes": n, "nbits": 32, "parts": 2}
 
 
+# byte offsets of tests/test_torch_ipa.py's tampered proofs: the inner
+# product, L of rounds 1, 3 and 6 (the sign byte, or a bit of x), R of
+# round 6, b1 (its lowest and highest byte)
+IPA_TAMPERED = (3, 40, 555, 32, 164, 362, 370, 395, 524)
+# an IPA audit's launches of K2, group_sum and point_add: the audit MSMs'
+# (K2 windowed and group_sum, each side) and the align's point_add, then
+# the verifier's L and R terms (K2 GLV and group_sum) and the MAC check's
+# alpha products and adds (K2 windowed and point_add); K4 besides (the
+# prover's 6 rounds, the verifier's final MSM, the complements, the align)
+IPA_AUDIT_LAUNCHES = {"scalar_mul_window": 3, "scalar_mul_glv": 1,
+                      "group_sum": 3, "point_add": 2}
+
+
+def check_ipa(dev, n=16) -> dict:
+    """The IPA prover and verifier on the card, every curve operation on
+    the kernels: the proof byte for byte the golden prover's (host
+    integers, `golden/ipa.py`), on random vectors and on vectors whose
+    first round has cL = 0 (u's lane at infinity); the verifier accepts
+    both and refuses a wrong commitment and every `IPA_TAMPERED` proof;
+    one prove is 6 K4 launches, one verify a K4, a K2 GLV and a group_sum
+    launch. The MAC check's alpha products (K2 windowed at 128 bits for
+    IPA's alpha, GLV for a 254-bit BN254 alpha) equal the golden model's
+    lane by lane. Then an n-block IPA pair on the card: two audits, each
+    launching `IPA_AUDIT_LAUNCHES` and the same K4 launches."""
+    import tempfile
+
+    import numpy as np
+    from porla_tpu_torch import native
+    from porla_tpu_torch.commit import ipa, pedersen
+    from porla_tpu_torch.config import NUM_CHUNKS, SECRET_KEY, PorlaConfig
+    from porla_tpu_torch.curves.instances import bn254, secp256k1
+    from porla_tpu_torch.golden import ecc
+    from porla_tpu_torch.golden import ipa as golden_ipa
+    from porla_tpu_torch.protocol.client import PorlaClient, alpha_products
+    from porla_tpu_torch.protocol.server import PorlaServer
+
+    rng = np.random.default_rng(SEED + 7)
+    Q = ipa.Q
+    cv = ecc.SECP256K1
+    a = [int.from_bytes(rng.bytes(31), "little") for _ in range(NUM_CHUNKS)]
+    b = [pow(int(rng.integers(1, 1 << 31)), 1 << i, Q)
+         for i in range(NUM_CHUNKS)]
+    half = NUM_CHUNKS // 2
+    zero = list(a)
+    zero[0] = -sum(a[i] * b[half + i] for i in range(1, half)) \
+        * pow(b[half], -1, Q) % Q
+    gens, u, affine = pedersen.ipa_generators()
+    gens = gens.to(dev)
+
+    def launched(fn):
+        native.reset_launches()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        return ms, {k: v for k, v in native.launches().items() if v}
+
+    out = {"check": "ipa", "prove_ms": [], "verify_ms": []}
+    for name, vec in (("random", a), ("u_lane_zero", zero)):
+        ipa.prove(vec, b, gens, u)                # the tables, once
+        proof = []
+        ms, got = launched(lambda: proof.append(ipa.prove(vec, b, gens, u)))
+        if got != {"fixed_base": 6}:
+            raise AssertionError(f"ipa.prove launched {got}")
+        out["prove_ms"].append(ms)
+        proof = proof[0]
+        if proof != golden_ipa.prove(vec, b, affine, u):
+            raise AssertionError(f"ipa.prove ({name}) differs from the "
+                                 f"golden prover")
+        commitment = ecc.msm(cv, affine, [x % Q for x in vec])
+        ms, got = launched(lambda: ipa.verify(commitment, proof, gens, u))
+        if got != {"fixed_base": 1, "scalar_mul_glv": 1, "group_sum": 1}:
+            raise AssertionError(f"ipa.verify launched {got}")
+        out["verify_ms"].append(ms)
+    refused = 0
+    bad = [(ecc.add(cv, commitment, affine[17]), proof)]
+    for byte in IPA_TAMPERED:
+        t = bytearray(proof)
+        t[byte] ^= 1
+        bad.append((commitment, bytes(t)))
+    for c, p in bad:
+        try:
+            ipa.verify(c, p, gens, u)
+        except (ipa.IpaVerificationError, ValueError):
+            refused += 1
+            continue
+        raise AssertionError("ipa.verify accepted a tampered proof or a "
+                             "wrong commitment")
+    out["refused"] = refused
+
+    alphas = ((secp256k1(), int.from_bytes(SECRET_KEY, "little")),
+              (bn254(), bn254().curve.n - 0x1234567))
+    for ops, alpha in alphas:
+        c = ops.curve
+        pts = [ecc.mul(c, c.g, 3), ecc.mul(c, c.g, 1 << 200), ecc.INF]
+        got = ops.to_affine(alpha_products(ops, alpha,
+                                           ops.from_affine(pts, dev)))
+        if got != [ecc.mul(c, q, alpha) for q in pts]:
+            raise AssertionError(f"alpha products at {alpha.bit_length()} "
+                                 f"bits differ from the golden model")
+
+    with tempfile.TemporaryDirectory(dir=HERE) as store:
+        cfg = PorlaConfig(scheme="ipa", storage_dir=store)
+        server = PorlaServer(cfg, device=dev)
+        client = PorlaClient(cfg, Recording(server, []),
+                             data_seed=bytes(range(16)), device=dev)
+        client.initialize(n)
+        out["audit_launches"] = []
+        for i in range(2):
+            ms, got = launched(lambda: client.audit(seed=bytes([i] * 16)))
+            k4 = got.pop("fixed_base", 0)
+            if got != IPA_AUDIT_LAUNCHES or i and k4 != out["audit_k4"]:
+                raise AssertionError(f"an IPA audit launched {got} and K4 "
+                                     f"{k4} times")
+            out["audit_k4"] = k4
+            out["audit_launches"].append(k4 + sum(got.values()))
+    return out
+
+
 # --- phase 3: the protocol --------------------------------------------------
 
 class Recording:
@@ -1680,10 +1804,11 @@ PROTOCOL_KERNELS = ("ntt_stage", "scalar_mul_window", "scalar_mul_glv",
                     "point_butterfly", "fixed_base", "group_sum", "point_add")
 
 # point_add's launches a phase of the cycle: an update's client MAC and
-# deltas, the server's two absorbs and its align; an audit's align; the
-# update that closes an epoch has no align (the CRebuild in place of HAdd)
-POINT_ADDS = {"update": 5, "resume_update": 5, "epoch_close": 4, "audit": 1,
-              "resume_audit": 1}
+# deltas, the server's two absorbs and its align; an audit's align and the
+# client's MAC check; the update that closes an epoch has no align (the
+# CRebuild in place of HAdd)
+POINT_ADDS = {"update": 5, "resume_update": 5, "epoch_close": 4, "audit": 2,
+              "resume_audit": 2}
 
 
 def check_bn254(dev, rng) -> dict:
@@ -2824,6 +2949,7 @@ def main() -> int:
     emit(dict(check="point_butterfly_window",
               **{k: v for k, v in k7.items() if k != "name"}))
     bn = check_bn254(dev, rng)
+    emit(check_ipa(dev))
 
     # each path is driven with the counts set to 0 just before it and read
     # just after; a kernel must be launched by the path that owns it

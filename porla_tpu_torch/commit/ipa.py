@@ -13,10 +13,18 @@ Scalar/point serialization matches the reference wire format:
 Proof layout (NUM_CHUNKS=128): [ip:32] + 6 rounds * [L:33 | R:33] +
 [a0:32 | b0:32 | a1:32 | b1:32] = 556 bytes (Server.hpp:856).
 
-The per-round MSMs and the final 128-point MSM run on K4, the fixed-base
-kernel (full generator width with zero padding); single-point scalar
-mults stay on the host golden model. `gens` is a JacPoint on the device
-the MSMs should run on.
+Every curve operation runs on the card's kernels (their plain versions on
+the CPU); no scalar multiplication is left to the host's integers. `gens`
+is a JacPoint on the device the kernels should run on, `u` an affine point.
+
+- A prover's round is one K4 launch of two groups of NUM_CHUNKS lanes, L's
+  and R's, over a table laid out for the round (`_round_tables`): a
+  group's 64 generators, then u with the scalar cL (or cR), then pad lanes
+  of zero scalar. So the launch returns L and R whole.
+- The verifier derives every round's x from the proof's bytes first, then
+  sums x^2 L + x^-2 R over the rounds and the commitment in one K2 GLV
+  launch and one `group_sum`, and the final MSM and (ab - c) u in one K4
+  launch over the first round's table, one side of the equation a group.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from porla_tpu_torch.config import NUM_CHUNKS
 from porla_tpu_torch.crypto.shas import Sha256
 from porla_tpu_torch.curves import cuda_curve
 from porla_tpu_torch.curves.instances import secp256k1
-from porla_tpu_torch.curves.weierstrass import JacPoint
+from porla_tpu_torch.curves.weierstrass import JacPoint, cat, index
 from porla_tpu_torch.fields import constants as C
 from porla_tpu_torch.fields import limbs
 from porla_tpu_torch.golden import ecc
@@ -40,33 +48,51 @@ def _gens_table(gens: JacPoint):
     return cuda_curve.fb_table_for(secp256k1(), g)
 
 
-def _msm_gens(gens: JacPoint, scalar_map: dict[int, int]):
-    """MSM over the fixed generator set with scalars at given positions
-    (zeros elsewhere keep the shape fixed), as one K4 launch over
-    NUM_CHUNKS lanes plus a lane-halving sum. Returns the affine point."""
-    sc = [0] * NUM_CHUNKS
-    for pos, v in scalar_map.items():
-        sc[pos] = v % Q
-    with trace.span("ipa.msm"):
-        out = cuda_curve.fb_msm_groups(
-            _gens_table(gens), limbs.ints_to_tensor(sc, gens.x.device), nout=1)
-        return secp256k1().to_affine(out)[0]
+# columns of the source table `_round_tables` lays out: the NUM_CHUNKS
+# generators, then u, then the point at infinity for the pad lanes
+_U = NUM_CHUNKS
+_PAD = NUM_CHUNKS + 1
+_ROUND_TABLES: dict = {}
 
 
-def _msm_gens2(gens: JacPoint, scal_l: dict[int, int],
-               scal_r: dict[int, int]):
-    """Two fixed-base MSMs over the generator set as one K4 launch
-    (2*NUM_CHUNKS lanes), reduced per half. Returns two affine points."""
-    sc = [0] * (2 * NUM_CHUNKS)
-    for pos, v in scal_l.items():
-        sc[pos] = v % Q
-    for pos, v in scal_r.items():
-        sc[NUM_CHUNKS + pos] = v % Q
-    with trace.span("ipa.msm2"):
-        out = cuda_curve.fb_msm_groups(
-            _gens_table(gens), limbs.ints_to_tensor(sc, gens.x.device), nout=2)
-        aff = secp256k1().to_affine(out)
-        return aff[0], aff[1]
+def _lanes(left: list, left_u, right: list, right_u, pad) -> list:
+    """A round's 2 * NUM_CHUNKS lanes: each group holds its generators'
+    entries, then u's, then `pad` up to NUM_CHUNKS lanes (a power of two,
+    as `fb_msm_groups` asks)."""
+    fill = [pad] * (NUM_CHUNKS - len(left) - 1)
+    return left + [left_u] + fill + right + [right_u] + fill
+
+
+def _round_tables(gens: JacPoint, u) -> dict:
+    """The K4 table of each round, by its `half`: L's group over the
+    generators of the odd half-blocks, R's over those of the even ones
+    (Server.hpp:2337-2349, 2387-2399), each followed by u and pad lanes at
+    infinity. Every table gathers its bases from one source, the
+    generators' table beside a table of u and infinity, so u's windows
+    are the only points computed here (once a process)."""
+    ops = secp256k1()
+    g = _gens_table(gens)
+    key = (id(g), u)
+    tables = _ROUND_TABLES.get(key)
+    if tables is None:
+        src = cuda_curve.fb_table_cat(
+            [g, cuda_curve.fb_table_for(ops, ops.from_affine([u, ecc.INF]))])
+        tables = {}
+        for r in range(1, NUM_CHUNKS.bit_length() - 1):     # half 64 .. 2
+            half = NUM_CHUNKS >> r
+            odd = [j for j in range(NUM_CHUNKS) if (j // half) & 1]
+            even = [j for j in range(NUM_CHUNKS) if not (j // half) & 1]
+            tables[half] = cuda_curve.FbColumns(
+                src, _lanes(odd, _U, even, _U, _PAD))
+        _ROUND_TABLES[key] = tables
+    return tables
+
+
+def _round_msm(table, scalars: list[int], device):
+    """One K4 launch over a round's table: the two groups' sums as a
+    (2,) JacPoint."""
+    return cuda_curve.fb_msm_groups(
+        table, limbs.ints_to_tensor(scalars, device), nout=2)
 
 
 def _hash_mod_q(b32: bytes) -> int:
@@ -81,7 +107,7 @@ def prove(a: list[int], b: list[int], gens: JacPoint, u) -> bytes:
     assert len(a) == NUM_CHUNKS and len(b) == NUM_CHUNKS
     a = list(a)
     b = list(b)
-    cv = ecc.SECP256K1
+    tables = _round_tables(gens, u)
     proof = bytearray()
 
     ip = sum(x * y for x, y in zip(a, b)) % Q
@@ -106,30 +132,29 @@ def prove(a: list[int], b: list[int], gens: JacPoint, u) -> bytes:
             cR = sum(a[half + i] * b[i] for i in range(half)) % Q
 
             # L: scalars on odd half-blocks (Server.hpp:2337-2349); R: even
-            # half-blocks (Server.hpp:2387-2399). R's scalars depend only on
-            # x/inv_x — not on L's transcript bytes — so both MSMs run as
-            # ONE batched device call per round.
-            scal_l = {}
+            # half-blocks (Server.hpp:2387-2399), each in position order, as
+            # the round's table lays out its groups. R's scalars depend
+            # only on x/inv_x — not on L's transcript bytes — so L and R
+            # (their u terms included) are ONE device call per round.
+            scal_l = []
             for i in range(k):
                 pos = (i << 1) + 1
                 for qi, j in enumerate(range(pos * half, (pos + 1) * half)):
-                    scal_l[j] = (a[qi] * x_values[j]) % Q
+                    scal_l.append((a[qi] * x_values[j]) % Q)
                     x_values[j] = (x_values[j] * x) % Q
-            scal_r = {}
+            scal_r = []
             for i in range(k):
                 pos = i << 1
                 for qi, j in enumerate(range(pos * half, (pos + 1) * half)):
-                    scal_r[j] = (a[half + qi] * x_values[j]) % Q
+                    scal_r.append((a[half + qi] * x_values[j]) % Q)
                     x_values[j] = (x_values[j] * inv_x) % Q
 
             a = [(a[i] * x + a[i + half] * inv_x) % Q for i in range(half)]
             b = [(b[i] * inv_x + b[i + half] * x) % Q for i in range(half)]
-        msm_l, msm_r = _msm_gens2(gens, scal_l, scal_r)
-
-        # neither point depends on the other's transcript bytes
-        with trace.span("ecc.host"):
-            L = ecc.add(cv, msm_l, ecc.mul(cv, u, cL))
-            R = ecc.add(cv, msm_r, ecc.mul(cv, u, cR))
+        with trace.span("ipa.msm2"):
+            L, R = secp256k1().to_affine(_round_msm(
+                tables[half], _lanes(scal_l, cL, scal_r, cR, 0),
+                gens.x.device))
 
         with trace.span("ipa.transcript"):
             ser = ecc.secp_serialize_compressed(L)
@@ -163,12 +188,11 @@ def verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
 
 
 def _verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
-    cv = ecc.SECP256K1
+    ops = secp256k1()
+    dev = gens.x.device
     off = 0
     c = int.from_bytes(proof[off:off + 32], "little")
     off += 32
-    with trace.span("ecc.host"):
-        P_acc = ecc.add(cv, commitment, ecc.mul(cv, u, c))
 
     with trace.span("ipa.transcript"):
         sha = Sha256()
@@ -177,6 +201,9 @@ def _verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
         random_str = sha.finalize()
 
     x_values = [1] * NUM_CHUNKS
+    # every round's L and R with its x^2 and x^-2: the transcript hashes
+    # the proof alone, so all of them are known before any curve work
+    points, point_scalars = [], []
 
     half = NUM_CHUNKS // 2
     k = 1
@@ -204,10 +231,8 @@ def _verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
             sha.write(proof[off:off + 33])
             random_str = sha.finalize()
             off += 33
-
-        with trace.span("ecc.host"):
-            P_acc = ecc.add(cv, P_acc, ecc.mul(cv, L, x2))
-            P_acc = ecc.add(cv, P_acc, ecc.mul(cv, R, inv_x2))
+        points += [L, R]
+        point_scalars += [x2, inv_x2]
         half >>= 1
         k <<= 1
 
@@ -220,16 +245,24 @@ def _verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
         off += 32
     ab = (a[0] * b[0] + a[1] * b[1]) % Q
 
-    scal = {}
-    for i in range(NUM_CHUNKS >> 1):
-        pos = i << 1
-        scal[pos] = (a[0] * x_values[pos]) % Q
-    for i in range(NUM_CHUNKS >> 1):
-        pos = (i << 1) + 1
-        scal[pos] = (a[1] * x_values[pos]) % Q
-    msm = _msm_gens(gens, scal)
+    scal = [(a[j & 1] * x_values[j]) % Q for j in range(NUM_CHUNKS)]
+    # The reference checks commitment + c u + sum(x^2 L + x^-2 R) ==
+    # ab u + sum(scal_j G_j). Here (ab - c) u and the upper half's terms
+    # stay on the right, the lower half's move to the left negated: the
+    # first round's table holds exactly these two groups.
+    lo = NUM_CHUNKS // 2
+    with trace.span("ipa.msm"):
+        msm = _round_msm(_round_tables(gens, u)[lo], _lanes(
+            scal[lo:], (ab - c) % Q, [(-s) % Q for s in scal[:lo]], 0, 0),
+            dev)
     with trace.span("ecc.host"):
-        P = ecc.add(cv, ecc.mul(cv, u, ab), msm)
+        terms = cuda_curve.scalar_mul(
+            ops, ops.from_affine(points, dev),
+            limbs.ints_to_tensor(point_scalars, dev))
+        lhs = cuda_curve.group_sum(ops, cat([
+            terms, ops.from_affine([commitment], dev),
+            index(msm, slice(1, 2))]), 1)
+        lhs, rhs = ops.to_affine(cat([lhs, index(msm, slice(0, 1))]))
 
-    if P_acc != P:
+    if lhs != rhs:
         raise IpaVerificationError("inner-product argument check failed")

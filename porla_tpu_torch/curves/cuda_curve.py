@@ -290,20 +290,29 @@ class FbTable:
     """Per-window affine lookup tables for a fixed set of ng bases:
     coords (nwin, 16, ng, 16) int64 limbs (Montgomery; z in {0, R}), built
     once on the host. Each device gets the form it needs once: the limbs
-    for the plain version (`on`), the packed words for K4 (`packed`)."""
+    for the plain version (`on`), the packed words for K4 (`packed`). A
+    table of `parts` (`fb_table_cat`) holds their bases side by side and
+    joins their forms where asked, so no part's points are packed again."""
 
-    def __init__(self, ops: CurveOps, coords, nbits: int, ng: int):
+    def __init__(self, ops: CurveOps, coords, nbits: int, ng: int,
+                 parts=()):
         self.ops = ops
-        self.coords = coords            # host JacPoint
+        self.coords = coords            # host JacPoint (None for parts)
         self.nbits = nbits
         self.ng = ng
+        self.parts = tuple(parts)
         self._dev: dict = {}
 
     def on(self, device) -> JacPoint:
         key = ("limbs", str(device))
         t = self._dev.get(key)
         if t is None:
-            t = self._dev[key] = self.coords.to(device)
+            if self.parts:
+                t = JacPoint(*(torch.cat(cs, 2) for cs in zip(
+                    *(p.on(device) for p in self.parts))))
+            else:
+                t = self.coords.to(device)
+            self._dev[key] = t
         return t
 
     def packed(self, device) -> torch.Tensor:
@@ -313,7 +322,10 @@ class FbTable:
         have odd order); the packing checks it."""
         key = ("packed", str(device))
         t = self._dev.get(key)
-        if t is None:
+        if t is None and self.parts:
+            t = self._dev[key] = torch.cat(
+                [p.packed(device) for p in self.parts], 2)
+        elif t is None:
             inf = self.coords.z.eq(0).all(-1)
             y0 = self.coords.y.eq(0).all(-1)
             if bool((y0 & ~inf).any()):
@@ -324,6 +336,48 @@ class FbTable:
             xy = xy.masked_fill(inf[..., None], 0)
             t = self._dev[key] = xy.contiguous().to(device)
         return t
+
+    def bases(self, B: int, device) -> torch.Tensor:
+        """The base of each of B lanes, as an index into the table's own
+        bases (`on`): lane i takes base i mod ng."""
+        return torch.arange(B, device=device) % self.ng
+
+
+class FbColumns(FbTable):
+    """A table whose base i is base columns[i] of `source`: K4's lanes can
+    then hold any of its bases, in any order and as often as needed, with
+    no table point computed again. The plain version reads the source's
+    points through `columns`; K4 gets the source's packed words gathered,
+    once a device."""
+
+    def __init__(self, source: FbTable, columns):
+        super().__init__(source.ops, None, source.nbits, len(columns))
+        self.source = source
+        self.columns = torch.tensor(columns, dtype=torch.int64)
+
+    def on(self, device) -> JacPoint:
+        return self.source.on(device)
+
+    def packed(self, device) -> torch.Tensor:
+        key = ("packed", str(device))
+        t = self._dev.get(key)
+        if t is None:
+            t = self._dev[key] = self.source.packed(device).index_select(
+                2, self.columns.to(device)).contiguous()
+        return t
+
+    def bases(self, B: int, device) -> torch.Tensor:
+        return self.columns.to(device)[super().bases(B, device)]
+
+
+def fb_table_cat(tables) -> FbTable:
+    """The bases of `tables` side by side in one table (numbered on from
+    the first table's), for `FbColumns` to choose from."""
+    first = tables[0]
+    assert all(t.ops is first.ops and t.nbits == first.nbits
+               and not isinstance(t, FbColumns) for t in tables)
+    return FbTable(first.ops, None, first.nbits, sum(t.ng for t in tables),
+                   parts=tables)
 
 
 def _batch_add_affine(cv: ecc.Curve, ps: list, qs: list) -> list:
@@ -434,14 +488,15 @@ def fb_lanes_plain(table: FbTable, scalars, split: int) -> JacPoint:
     dev = scalars.device
     t = table.on(dev)
     flat = JacPoint(*(c.reshape(-1, L.NLIMBS) for c in t))
-    lane_g = torch.arange(B, device=dev) % table.ng
+    lane_g = table.bases(B, dev)
+    ng = t.x.shape[2]
     acc = ops.infinity((split, B), dev)
     nwin = table.nbits // 4
     for r in range(0, nwin, split):
         ws = [min(w, nwin - 1) for w in range(r, r + split)]
         digit = torch.stack([_nibble(scalars, w) for w in ws])
         e = (torch.tensor(ws, device=dev)[:, None] * 16 + digit) \
-            * table.ng + lane_g
+            * ng + lane_g
         # past the last window a thread adds nothing: a masked-off lane
         # keeps its accumulator, as the kernel's loop ends there
         new = ops.madd(acc, index(flat, e))

@@ -32,7 +32,7 @@ from porla_tpu_torch.crypto import testrand
 from porla_tpu_torch.curves import cuda_curve
 from porla_tpu_torch.curves import kernels as ck
 from porla_tpu_torch.curves.instances import bn254, secp256k1
-from porla_tpu_torch.curves.weierstrass import JacPoint, cat
+from porla_tpu_torch.curves.weierstrass import JacPoint, cat, index
 from porla_tpu_torch.fields import limbs
 from porla_tpu_torch.fields.constants import BN254_R
 from porla_tpu_torch.golden import bn254_pairing as bp
@@ -45,6 +45,31 @@ from porla_tpu_torch.utils import trace
 
 class AuditError(AssertionError):
     pass
+
+
+def alpha_products(ops, alpha: int, points: JacPoint) -> JacPoint:
+    """alpha * points[i] in one K2 launch: its windowed mode over 128 bits
+    where alpha fits in them (IPA's alpha, and KZG's from a 16-byte key),
+    its GLV mode otherwise (a KZG alpha of up to 254 bits)."""
+    nbits = 128 if alpha.bit_length() <= 128 else 256
+    scalars = limbs.ints_to_tensor([alpha] * points.x.shape[0],
+                                   points.x.device)
+    return cuda_curve.scalar_mul(ops, points, scalars, nbits)
+
+
+def mac_sides(ops, alpha: int, commitment: JacPoint, compl: JacPoint,
+              mac_align: JacPoint) -> list:
+    """The two sides of the audit's MAC equation, alpha C + sum(coeff
+    complement) and MAC + alpha align, as affine points: alpha's two
+    products in one K2 launch, the two adds in one `point_add` launch, one
+    read-back. `commitment` and `compl` are (1,) JacPoints, `mac_align`
+    the (2,) MAC and alignment points."""
+    prod = alpha_products(ops, alpha,
+                          cat([commitment, index(mac_align, slice(1, 2))]))
+    sides = cuda_curve.point_add(
+        ops, cat([index(prod, slice(0, 1)), index(mac_align, slice(0, 1))]),
+        cat([compl, index(prod, slice(1, 2))]))
+    return ops.to_affine(sides)
 
 
 class UpdateOrderError(ValueError):
@@ -333,28 +358,26 @@ class PorlaClient:
         with trace.span("client.audit.msm", points=S):
             coeffs = ([s.coeff for s in plan.samples]
                       + [0] * (S - len(plan.samples)))
-            combined_compl = ops.to_affine(ck.msm(
+            combined_compl = ck.msm(
                 ops, compl, limbs.ints_to_tensor(coeffs, self.device),
-                nbits=32))[0]
+                nbits=32)
 
         with trace.span("client.audit.mac_check", bytes=len(reply)):
             if self.config.scheme == "ipa":
                 commitment = ecc.secp_parse_compressed(reply[0:33])
-                combined_mac = ecc.secp_parse_compressed(reply[33:66])
-                combined_align = ecc.secp_parse_compressed(reply[66:99])
+                mac_align = ops.from_affine(
+                    [ecc.secp_parse_compressed(reply[33:66]),
+                     ecc.secp_parse_compressed(reply[66:99])], self.device)
             else:
                 # kzg (Client.hpp:846-876): reply = [proof(192) | MAC(96) |
                 # align(96)]; proof = [C(64) | H(64) | z(32) | claimed(32)]
                 commitment = ecc.bn254_unmarshal(reply[0:64])
-                combined_mac, combined_align = ops.to_affine(
-                    points_io.points_from_bytes(reply[192:384], ops))
-
-            cv = ops.curve
+                mac_align = points_io.points_from_bytes(
+                    reply[192:384], ops, self.device)
             with trace.span("ecc.host"):
-                lhs = ecc.add(cv, ecc.mul(cv, commitment, self.alpha),
-                              combined_compl)
-                rhs = ecc.add(cv, combined_mac,
-                              ecc.mul(cv, combined_align, self.alpha))
+                commitment_pt = ops.from_affine([commitment], self.device)
+                lhs, rhs = mac_sides(ops, self.alpha, commitment_pt,
+                                     combined_compl, mac_align)
         if lhs != rhs:
             raise AuditError("MAC equation failed: data loss detected")
 

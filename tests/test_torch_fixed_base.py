@@ -227,6 +227,31 @@ def test_packed_table():
         bad.packed("cpu")
 
 
+def test_table_columns():
+    """A table gathered from two tables laid side by side (`fb_table_cat`,
+    `FbColumns`, as the IPA rounds lay out theirs): lanes take any of
+    their bases, repeated and reordered, infinity among them, in per-lane
+    and group sums; its packed words are the gathered columns of its
+    source's."""
+    ops = secp256k1()
+    gens = _gens(4)
+    u = ecc.mul(CUR, CUR.g, 12345)
+    src = cc.fb_table_cat([cc.build_fb_table(ops, gens, nbits=64),
+                           cc.build_fb_table(ops, [u, ecc.INF], nbits=64)])
+    cols = [2, 4, 0, 5, 1, 3, 5, 4]
+    tbl = cc.FbColumns(src, cols)
+    bases = gens + [u, ecc.INF]
+    sc = _scalars(16, 64)
+    got = ops.to_affine(cc.fb_scalar_mul(tbl, L.ints_to_tensor(sc)))
+    assert got == [ecc.mul(CUR, bases[cols[i % 8]], k)
+                   for i, k in enumerate(sc)]
+    got = ops.to_affine(cc.fb_msm_groups(tbl, L.ints_to_tensor(sc), 2))
+    assert got == [ecc.msm(CUR, [bases[cols[i % 8]] for i in range(o, o + 8)],
+                           sc[o:o + 8]) for o in (0, 8)]
+    assert torch.equal(tbl.packed("cpu"),
+                       src.packed("cpu")[:, :, cols].contiguous())
+
+
 def test_wrappers_reject_bad_operands():
     ops = secp256k1()
     P = ops.from_affine(_gens(6))

@@ -4,7 +4,7 @@ plain route held limb for limb (tolerance: zero) against `CurveOps.add` and
 sums, on secp256k1 and BN254 G1 at B = 1, 17 and 33 (lanes at infinity on
 either side, P + P and P + (-P) in other Jacobian forms, generic pairs);
 then the protocol's routing of its adds through it: on the CPU an update
-makes five calls and an audit one, and the bytes the client sends are those
+makes five calls and an audit two, and the bytes the client sends are those
 of a run whose adds call `CurveOps.add` directly. A CPU tensor never loads
 the kernel library."""
 
@@ -153,11 +153,11 @@ def _run(store, scheme, n=8, updates=2):
 
 def test_protocol_adds_go_through_point_add(tmp_path, monkeypatch):
     """Five adds an update (the client's MAC and deltas, the server's two
-    absorbs and its align), at fold levels 0 and 1, and one an audit (the
-    server's align); the requests are byte for byte those of a run whose
-    adds are `CurveOps.add` itself."""
+    absorbs and its align), at fold levels 0 and 1, and two an audit (the
+    server's align, the client's MAC check); the requests are byte for
+    byte those of a run whose adds are `CurveOps.add` itself."""
     msgs, per_op = _run(tmp_path / "wrapper", "ipa")
-    assert per_op == [("update", 5), ("update", 5), ("audit", 1)]
+    assert per_op == [("update", 5), ("update", 5), ("audit", 2)]
 
     def direct(ops, a, b, negate=False):
         return ops.add(a, ops.neg(b) if negate else b)

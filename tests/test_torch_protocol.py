@@ -1,19 +1,27 @@
 """The port's protocol slice on the CPU: a porla_tpu_torch client against a
 porla_tpu_torch server at n = 8 over the in-process transport — initialize,
-an audit that verifies (the MAC equation and the IPA transcript), the typed
-update-order error, the audit's padding guard, and entry points that take
-an explicit device. Every
-kernel-backed call takes its plain torch version here; chip_smoke.py runs
-the same cycle through the kernels. Updates are in test_torch_updates.py,
-corruption detection in test_torch_corruption.py."""
+an audit that verifies (the MAC equation and the IPA transcript) and runs
+no scalar multiplication of the golden model (`golden/ecc.py`'s `mul`), an
+audit whose reply carries a MAC off by one generator refused, the MAC
+check's alpha products lane by lane against that golden model (alpha of
+128 bits on secp256k1, of 254 bits on BN254), the typed update-order
+error, the audit's padding guard, and entry points that take an explicit
+device. Every kernel-backed call takes its plain torch version here;
+chip_smoke.py runs the same cycle through the kernels. Updates are in
+test_torch_updates.py, corruption detection in test_torch_corruption.py."""
 
 import pytest
 import torch
 
 from porla_tpu_torch import native
 from porla_tpu_torch.config import PorlaConfig
+from porla_tpu_torch.curves import glv
+from porla_tpu_torch.curves.instances import bn254, secp256k1
+from porla_tpu_torch.golden import ecc
 from porla_tpu_torch.protocol import auditing
-from porla_tpu_torch.protocol.client import PorlaClient, UpdateOrderError
+from porla_tpu_torch.protocol.client import (AuditError, PorlaClient,
+                                             UpdateOrderError,
+                                             alpha_products)
 from porla_tpu_torch.protocol.server import PorlaServer
 from porla_tpu_torch.protocol.transport import InProcTransport
 
@@ -35,6 +43,49 @@ def test_audit_after_initialize(pair):
     client, server = pair
     assert server.levels[server.height - 1].x.data.p.device.type == "cpu"
     client.audit(seed=bytes(range(16)))
+
+
+def test_audit_runs_no_host_scalar_mul(pair, monkeypatch):
+    client, _ = pair
+    glv.params_for(client.ops.curve)      # the GLV constants: set-up, cached
+
+    def refuse(*args):
+        raise AssertionError("the golden model's mul on an audit's path")
+    monkeypatch.setattr(ecc, "mul", refuse)
+    client.audit(seed=bytes(range(3, 19)))
+
+
+def test_mac_off_by_a_generator_refused(pair, monkeypatch):
+    client, _ = pair
+    cv = ecc.SECP256K1
+    send = client.transport
+
+    def off_by_g(msg):
+        reply = send(msg)
+        mac = ecc.add(cv, ecc.secp_parse_compressed(reply[33:66]), cv.g)
+        return reply[:33] + ecc.secp_serialize_compressed(mac) + reply[66:]
+    monkeypatch.setattr(client, "transport", off_by_g)
+    with pytest.raises(AuditError):
+        client.audit(seed=bytes(range(4, 20)))
+
+
+@pytest.mark.parametrize("scheme", ["ipa", "kzg"])
+def test_alpha_products_match_golden_model(scheme):
+    """K2's windowed mode over 128 bits for IPA's alpha, its GLV mode for a
+    KZG alpha of 254 bits; a lane at infinity stays there."""
+    if scheme == "ipa":
+        ops = secp256k1()
+        alpha = PorlaClient(PorlaConfig(scheme="ipa"), None,
+                            device="cpu").alpha
+        assert 124 < alpha.bit_length() <= 128
+    else:
+        ops = bn254()
+        alpha = ops.curve.n - 0x1234567
+        assert alpha.bit_length() == 254
+    cv = ops.curve
+    pts = [ecc.mul(cv, cv.g, 3), ecc.mul(cv, cv.g, 1 << 200), ecc.INF]
+    got = ops.to_affine(alpha_products(ops, alpha, ops.from_affine(pts)))
+    assert got == [ecc.mul(cv, p, alpha) for p in pts]
 
 
 def test_misaligned_update_rejected(pair):

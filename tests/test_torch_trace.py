@@ -231,7 +231,7 @@ IPA_PATHS = [
     AUDIT + "ipa.verify/ipa.msm", AUDIT + "ipa.verify/ipa.transcript",
     AUDIT + "server.audit/server.audit.prove/ipa.transcript",
     AUDIT + "server.audit/server.audit.prove/ipa.scalars",
-    AUDIT + "server.audit/server.audit.prove/ecc.host"]
+    AUDIT + "server.audit/server.audit.prove/ipa.msm2"]
 
 
 def test_cycle_new_spans_at_their_paths(cycle):
@@ -239,15 +239,16 @@ def test_cycle_new_spans_at_their_paths(cycle):
     assert set(NEW_PATHS) <= paths
     assert set(IPA_PATHS) & paths == (set(IPA_PATHS) if cycle.scheme == "ipa"
                                       else set())
-    # a span per group of host curve operations, not per call: the MAC
-    # check's one, the verifier's 1 + 6 rounds + 1, the prover's 6 rounds
+    # a span around each dispatch of the audit's single-point scalar
+    # multiplications to the card: the MAC check's one, the verifier's one;
+    # the prover's u terms are lanes of its rounds' K4 launches (ipa.msm2)
     groups = collections.Counter(s["path"] for s in cycle.spans
                                  if s["name"] == "ecc.host")
     assert groups[AUDIT + "client.audit.mac_check/ecc.host"] == 1
     if cycle.scheme == "ipa":
-        assert groups[AUDIT + "ipa.verify/ecc.host"] == 8
+        assert groups[AUDIT + "ipa.verify/ecc.host"] == 1
         assert groups[AUDIT + "server.audit/server.audit.prove/ecc.host"] \
-            == 6
+            == 0
 
 
 def test_cycle_metric_paths_unchanged(cycle):
