@@ -578,14 +578,14 @@ def check_k4(dev, rng, ops, shapes=FB_SHAPES, gens_aff=None):
 
     cv = ops.curve
     if gens_aff is None:
-        gens_aff = pedersen.ipa_generators()[2]
+        gens_aff = pedersen.ipa_generators()[0]
     h = rand_points(rng, cv, 1)
     more = max(sh[3] for sh in shapes) - len(gens_aff)
     gens_aff = list(gens_aff) + rand_points(rng, cv, max(more, 0))
     rows = []
     for name, B, nout, ng, nbits in shapes:
         bases = gens_aff[:ng] if ng > 1 else h
-        tbl = cc.fb_table_for(ops, ops.from_affine(bases), nbits)
+        tbl = cc.fixed_base_table(ops, bases, nbits)
         k = fb_edge_scalars(rng, B, nbits, cv.n)
         sc = L.ints_to_tensor(k, dev)
         if nout:
@@ -1151,9 +1151,8 @@ def check_kernels_only(dev, rng, ops):
     from porla_tpu_torch.golden import ecc
 
     cv = ops.curve
-    gens, _, gens_aff = pedersen.ipa_generators()
-    gens = gens.to(dev)
-    tbl = cc.fb_table_for(ops, gens)
+    gens_aff, _ = pedersen.ipa_generators()
+    tbl = cc.fixed_base_table(ops, gens_aff)
     k = rand_below(rng, cv.n, 256)
     got = assert_kernels_only(
         ops, lambda: cc.fb_msm_groups(tbl, L.ints_to_tensor(k, dev), 2),
@@ -1165,7 +1164,7 @@ def check_kernels_only(dev, rng, ops):
         kb = rand_below(rng, cv.n, nb * 128)
         sc = L.ints_to_tensor(kb, dev).reshape(nb, 128, 16)
         got = assert_kernels_only(
-            ops, lambda: pedersen.commit_blocks(gens, sc, ops),
+            ops, lambda: pedersen.commit_blocks(tbl, sc),
             {"fixed_base": 1},
             f"one commit_blocks call of {nb} blocks")
         want = [ecc.msm(cv, gens_aff, kb[b * 128:(b + 1) * 128])
@@ -1475,8 +1474,8 @@ def check_ipa(dev, n=16) -> dict:
     zero = list(a)
     zero[0] = -sum(a[i] * b[half + i] for i in range(1, half)) \
         * pow(b[half], -1, Q) % Q
-    gens, u, affine = pedersen.ipa_generators()
-    gens = gens.to(dev)
+    affine, u = pedersen.ipa_generators()
+    key = ipa.IpaKey(affine, u, dev)
 
     def launched(fn):
         native.reset_launches()
@@ -1488,9 +1487,9 @@ def check_ipa(dev, n=16) -> dict:
 
     out = {"check": "ipa", "prove_ms": [], "verify_ms": []}
     for name, vec in (("random", a), ("u_lane_zero", zero)):
-        ipa.prove(vec, b, gens, u)                # the tables, once
+        ipa.prove(vec, b, key)                    # the tables, once
         proof = []
-        ms, got = launched(lambda: proof.append(ipa.prove(vec, b, gens, u)))
+        ms, got = launched(lambda: proof.append(ipa.prove(vec, b, key)))
         if got != {"fixed_base": 6}:
             raise AssertionError(f"ipa.prove launched {got}")
         out["prove_ms"].append(ms)
@@ -1499,7 +1498,7 @@ def check_ipa(dev, n=16) -> dict:
             raise AssertionError(f"ipa.prove ({name}) differs from the "
                                  f"golden prover")
         commitment = ecc.msm(cv, affine, [x % Q for x in vec])
-        ms, got = launched(lambda: ipa.verify(commitment, proof, gens, u))
+        ms, got = launched(lambda: ipa.verify(commitment, proof, key))
         if got != {"fixed_base": 1, "scalar_mul_glv": 1, "group_sum": 1}:
             raise AssertionError(f"ipa.verify launched {got}")
         out["verify_ms"].append(ms)
@@ -1511,7 +1510,7 @@ def check_ipa(dev, n=16) -> dict:
         bad.append((commitment, bytes(t)))
     for c, p in bad:
         try:
-            ipa.verify(c, p, gens, u)
+            ipa.verify(c, p, key)
         except (ipa.IpaVerificationError, ValueError):
             refused += 1
             continue

@@ -14,11 +14,12 @@ Proof layout (NUM_CHUNKS=128): [ip:32] + 6 rounds * [L:33 | R:33] +
 [a0:32 | b0:32 | a1:32 | b1:32] = 556 bytes (Server.hpp:856).
 
 Every curve operation runs on the card's kernels (their plain versions on
-the CPU); no scalar multiplication is left to the host's integers. `gens`
-is a JacPoint on the device the kernels should run on, `u` an affine point.
+the CPU); no scalar multiplication is left to the host's integers. The
+bases, u and every table the kernels read are an `IpaKey`'s, on the device
+the kernels should run on.
 
 - A prover's round is one K4 launch of two groups of NUM_CHUNKS lanes, L's
-  and R's, over a table laid out for the round (`_round_tables`): a
+  and R's, over a table laid out for the round (`IpaKey.rounds`): a
   group's 64 generators, then u with the scalar cL (or cR), then pad lanes
   of zero scalar. So the launch returns L and R whole.
 - The verifier derives every round's x from the proof's bytes first, then
@@ -33,7 +34,7 @@ from porla_tpu_torch.config import NUM_CHUNKS
 from porla_tpu_torch.crypto.shas import Sha256
 from porla_tpu_torch.curves import cuda_curve
 from porla_tpu_torch.curves.instances import secp256k1
-from porla_tpu_torch.curves.weierstrass import JacPoint, cat, index
+from porla_tpu_torch.curves.weierstrass import cat, index
 from porla_tpu_torch.fields import constants as C
 from porla_tpu_torch.fields import limbs
 from porla_tpu_torch.golden import ecc
@@ -43,16 +44,10 @@ Q = C.SECP_N
 _INIT_STR = b"hash of P, c, etc. all that jazz"
 
 
-def _gens_table(gens: JacPoint):
-    g = JacPoint(*(c[:NUM_CHUNKS] for c in gens))
-    return cuda_curve.fb_table_for(secp256k1(), g)
-
-
-# columns of the source table `_round_tables` lays out: the NUM_CHUNKS
-# generators, then u, then the point at infinity for the pad lanes
+# columns of the source table an `IpaKey`'s round tables gather from: the
+# NUM_CHUNKS generators, then u, then the point at infinity for the pad lanes
 _U = NUM_CHUNKS
 _PAD = NUM_CHUNKS + 1
-_ROUND_TABLES: dict = {}
 
 
 def _lanes(left: list, left_u, right: list, right_u, pad) -> list:
@@ -63,29 +58,39 @@ def _lanes(left: list, left_u, right: list, right_u, pad) -> list:
     return left + [left_u] + fill + right + [right_u] + fill
 
 
-def _round_tables(gens: JacPoint, u) -> dict:
-    """The K4 table of each round, by its `half`: L's group over the
-    generators of the odd half-blocks, R's over those of the even ones
+class IpaKey:
+    """The IPA's bases and their K4 tables, built once and held by their
+    owner (the server's at its construction; the client's at initialize,
+    from the generators and u that arrive on the wire): `gens_affine`, the
+    NUM_CHUNKS generators; `u`; `table`, the generators' table, which the
+    server's Pedersen commitments use too; and `rounds`, each prover
+    round's table by its `half`. A round's table is L's group over the
+    generators of the odd half-blocks and R's over those of the even ones
     (Server.hpp:2337-2349, 2387-2399), each followed by u and pad lanes at
-    infinity. Every table gathers its bases from one source, the
-    generators' table beside a table of u and infinity, so u's windows
-    are the only points computed here (once a process)."""
-    ops = secp256k1()
-    g = _gens_table(gens)
-    key = (id(g), u)
-    tables = _ROUND_TABLES.get(key)
-    if tables is None:
+    infinity, gathered (`cuda_curve.FbColumns`) from the generators' table
+    beside a table of u and infinity: u's windows are the only points
+    computed for them. `device` is where the proofs' scalars go. In one
+    process a client's and a server's keys share the tables of their bases
+    (`cuda_curve.fixed_base_table`)."""
+
+    def __init__(self, gens_affine, u, device):
+        if len(gens_affine) != NUM_CHUNKS:
+            raise ValueError(f"{len(gens_affine)} generators, expected "
+                             f"{NUM_CHUNKS}")
+        ops = secp256k1()
+        self.gens_affine = list(gens_affine)
+        self.u = u
+        self.device = device
+        self.table = cuda_curve.fixed_base_table(ops, self.gens_affine)
         src = cuda_curve.fb_table_cat(
-            [g, cuda_curve.fb_table_for(ops, ops.from_affine([u, ecc.INF]))])
-        tables = {}
+            [self.table, cuda_curve.fixed_base_table(ops, [u, ecc.INF])])
+        self.rounds = {}
         for r in range(1, NUM_CHUNKS.bit_length() - 1):     # half 64 .. 2
             half = NUM_CHUNKS >> r
             odd = [j for j in range(NUM_CHUNKS) if (j // half) & 1]
             even = [j for j in range(NUM_CHUNKS) if not (j // half) & 1]
-            tables[half] = cuda_curve.FbColumns(
+            self.rounds[half] = cuda_curve.FbColumns(
                 src, _lanes(odd, _U, even, _U, _PAD))
-        _ROUND_TABLES[key] = tables
-    return tables
 
 
 def _round_msm(table, scalars: list[int], device):
@@ -101,13 +106,12 @@ def _hash_mod_q(b32: bytes) -> int:
     return int.from_bytes(b32, "little") % Q
 
 
-def prove(a: list[int], b: list[int], gens: JacPoint, u) -> bytes:
+def prove(a: list[int], b: list[int], key: IpaKey) -> bytes:
     """a, b: length-128 integer vectors (a = audited block mod p, b =
     challenge powers; b[0] may be negative — NTL semantics)."""
     assert len(a) == NUM_CHUNKS and len(b) == NUM_CHUNKS
     a = list(a)
     b = list(b)
-    tables = _round_tables(gens, u)
     proof = bytearray()
 
     ip = sum(x * y for x, y in zip(a, b)) % Q
@@ -153,8 +157,8 @@ def prove(a: list[int], b: list[int], gens: JacPoint, u) -> bytes:
             b = [(b[i] * inv_x + b[i + half] * x) % Q for i in range(half)]
         with trace.span("ipa.msm2"):
             L, R = secp256k1().to_affine(_round_msm(
-                tables[half], _lanes(scal_l, cL, scal_r, cR, 0),
-                gens.x.device))
+                key.rounds[half], _lanes(scal_l, cL, scal_r, cR, 0),
+                key.device))
 
         with trace.span("ipa.transcript"):
             ser = ecc.secp_serialize_compressed(L)
@@ -180,16 +184,16 @@ class IpaVerificationError(AssertionError):
     pass
 
 
-def verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
+def verify(commitment, proof: bytes, key: IpaKey) -> None:
     """Raises IpaVerificationError on failure (the reference CHECK-aborts,
     Client.hpp:1628). `commitment` is the affine commitment point."""
     with trace.span("ipa.verify", bytes=len(proof)):
-        _verify(commitment, proof, gens, u)
+        _verify(commitment, proof, key)
 
 
-def _verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
+def _verify(commitment, proof: bytes, key: IpaKey) -> None:
     ops = secp256k1()
-    dev = gens.x.device
+    dev = key.device
     off = 0
     c = int.from_bytes(proof[off:off + 32], "little")
     off += 32
@@ -252,7 +256,7 @@ def _verify(commitment, proof: bytes, gens: JacPoint, u) -> None:
     # first round's table holds exactly these two groups.
     lo = NUM_CHUNKS // 2
     with trace.span("ipa.msm"):
-        msm = _round_msm(_round_tables(gens, u)[lo], _lanes(
+        msm = _round_msm(key.rounds[lo], _lanes(
             scal[lo:], (ab - c) % Q, [(-s) % Q for s in scal[:lo]], 0, 0),
             dev)
     with trace.span("ecc.host"):

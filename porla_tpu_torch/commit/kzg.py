@@ -9,9 +9,9 @@ Counterpart of `porla_tpu/commit/kzg.py`.
   multiplication (f(tau)*alpha*G1, main.go:70-89) while the server commits
   through the SRS (main.go:103-116).
 - The SRS is a fixed base set, so a commitment is K4 (`fb_msm_groups`, one
-  group of `size` lanes) over its per-window table, as an IPA MSM is; the
-  quotient polynomial is synthetic division on the host and verification a
-  pairing check on the host (`golden/bn254_pairing.py`).
+  group of `size` lanes) over its per-window table (`KzgSrs.table`), as an
+  IPA MSM is; the quotient polynomial is synthetic division on the host and
+  verification a pairing check on the host (`golden/bn254_pairing.py`).
 
 Serialization: G1 points use the gnark 64-byte uncompressed marshal
 (X||Y big-endian; golden/ecc.py), Fr scalars 32-byte big-endian — the
@@ -21,10 +21,11 @@ package's for the same tau.
 
 from __future__ import annotations
 
+import functools
+
 from porla_tpu_torch import native
 from porla_tpu_torch.curves import cuda_curve
 from porla_tpu_torch.curves.instances import bn254
-from porla_tpu_torch.curves.weierstrass import JacPoint
 from porla_tpu_torch.fields import limbs
 from porla_tpu_torch.fields.constants import BN254_R as FR
 from porla_tpu_torch.golden import bn254_pairing as bp
@@ -33,25 +34,24 @@ from porla_tpu_torch.utils import trace
 
 
 class KzgSrs:
-    """Structured reference string of given size."""
+    """Structured reference string of given size, and the owner of the K4
+    table of its G1 powers (`table`)."""
 
     def __init__(self, g1_powers, g2_tau):
         self.g1_powers = g1_powers            # list of affine G1 points
         self.g2 = bp.G2
         self.g2_tau = g2_tau                  # [tau] G2 (Fp2 affine)
-        self._g1: dict = {}
 
     @property
     def size(self) -> int:
         return len(self.g1_powers)
 
-    def g1_dev(self, device) -> JacPoint:
-        """The G1 powers as a (size,) JacPoint on `device` (kept)."""
-        key = str(device)
-        pts = self._g1.get(key)
-        if pts is None:
-            pts = self._g1[key] = bn254().from_affine(self.g1_powers, device)
-        return pts
+    @functools.cached_property
+    def table(self) -> cuda_curve.FbTable:
+        """K4's table of the G1 powers, built at first use and held: the
+        server's commitments (`commit_msm`, `open_at` and its align
+        commitments) all read it."""
+        return cuda_curve.fixed_base_table(bn254(), self.g1_powers)
 
     @classmethod
     def from_tau(cls, tau: int, size: int) -> "KzgSrs":
@@ -98,10 +98,9 @@ def commit_msm(srs: KzgSrs, coeffs: list[int], device="cuda"):
     dev = native.resolve_device(device)
     sc = limbs.ints_to_tensor([c % FR for c in coeffs]
                               + [0] * (srs.size - len(coeffs)), dev)
-    ops = bn254()
     with trace.span("kzg.commit_msm"):
-        tbl = cuda_curve.fb_table_for(ops, srs.g1_dev("cpu"))
-        return ops.to_affine(cuda_curve.fb_msm_groups(tbl, sc, nout=1))[0]
+        return bn254().to_affine(
+            cuda_curve.fb_msm_groups(srs.table, sc, nout=1))[0]
 
 
 def commit_eval(tau: int, alpha: int, coeffs: list[int]):

@@ -34,7 +34,6 @@ K2, K3, K7, `group_sum` and `point_add` share the cooperative arithmetic of
 from __future__ import annotations
 
 import functools
-import hashlib
 from dataclasses import dataclass
 
 import torch
@@ -442,21 +441,23 @@ def build_fb_table(ops: CurveOps, gens_affine, nbits: int = 256) -> FbTable:
     return FbTable(ops, JacPoint(*(c.reshape(shape) for c in jp)), nbits, ng)
 
 
-_FB_CACHE: dict = {}
+_TABLES: dict = {}
 
 
-def fb_table_for(ops: CurveOps, generators: JacPoint,
-                 nbits: int = 256) -> FbTable:
-    """Table for a batch of bases, cached by coordinate digest (the
-    Pedersen generators and the MAC base h never change within a run)."""
-    host = [L.to_numpy(c) for c in generators]
-    key = (hashlib.sha256(b"".join(c.tobytes() for c in host)).hexdigest(),
-           nbits, ops.fp.n)
-    tbl = _FB_CACHE.get(key)
+def fixed_base_table(ops: CurveOps, bases, nbits: int = 256) -> FbTable:
+    """The K4 table of `bases` (affine (x, y) int pairs or INF), built once a
+    process for each (curve, nbits, bases). Only the owner of a base set
+    calls this, when it is built (an `ipa.IpaKey`, a `kzg.KzgSrs`, the
+    client's h and alpha generators) and holds the table: no operation
+    looks a table up. The memo exists because the benchmark runs client
+    and server in one process and both hold the IPA generators; without it
+    their table (about 1.4 s of host integers) would be built twice in
+    set-up."""
+    key = (ops.curve, nbits, tuple(bases))
+    tbl = _TABLES.get(key)
     if tbl is None:
-        with trace.span("fb_table", ng=len(host[0]), nbits=nbits):
-            affine = ops.to_affine(generators)
-            tbl = _FB_CACHE[key] = build_fb_table(ops, affine, nbits)
+        with trace.span("fb_table", ng=len(key[2]), nbits=nbits):
+            tbl = _TABLES[key] = build_fb_table(ops, key[2], nbits)
     return tbl
 
 

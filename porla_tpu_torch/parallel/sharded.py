@@ -369,34 +369,27 @@ def sharded_pippenger_msm_fn(mesh: Mesh, ops, nbits: int = 256,
     return fn, finish
 
 
-def sharded_commit_fn(mesh: Mesh, ops, nbits: int = 256):
-    """f(generators, scalars) -> sharded (B / dp,) commitments: scalars (B,
-    NG, 16) with B over "blocks" and NG over "chunks"; grid cell (b, c)
-    runs K4 over generator slice c and its blocks' scalars of that slice
-    (`cuda_curve.fb_msm_groups`, the slice's table built once and kept
-    while the same generators come back), and each block's tp partials
+def sharded_commit_fn(mesh: Mesh, table: cuda_curve.FbTable):
+    """f(scalars) -> sharded (B / dp,) commitments over the NG bases of
+    `table` (its owner's): scalars (B, NG, 16) with B over "blocks" and NG
+    over "chunks"; grid cell (b, c) runs K4 over the table's columns
+    c k .. (c + 1) k - 1 (k = NG / tp; a `cuda_curve.FbColumns` view, made
+    here once, which computes no table point) and its blocks' scalars of
+    that slice (`cuda_curve.fb_msm_groups`), and each block's tp partials
     are summed by `group_sum` on grid row b's first device."""
-    tp = mesh.tp
-    kept: dict = {"gens": None}
+    tp, ng, ops = mesh.tp, table.ng, table.ops
+    if ng % tp:
+        raise ValueError(f"{ng} generators do not split over tp = {tp}")
+    k = ng // tp
+    tbls = [cuda_curve.FbColumns(table, list(range(c * k, (c + 1) * k)))
+            for c in range(tp)]
 
-    def tables(gens: JacPoint, ng: int) -> list:
-        if kept["gens"] is not gens or kept["ng"] != ng:
-            if ng % tp:
-                raise ValueError(f"{ng} generators do not split over "
-                                 f"tp = {tp}")
-            k = ng // tp
-            host = gens.to("cpu")
-            kept.update(gens=gens, ng=ng, tables=[
-                cuda_curve.fb_table_for(ops, _rows(host, c * k, (c + 1) * k),
-                                        nbits) for c in range(tp)])
-        return kept["tables"]
-
-    def fn(gens: JacPoint, scalars: torch.Tensor) -> list:
-        B, ng = scalars.shape[0], scalars.shape[1]
-        if B % mesh.dp:
-            raise ValueError(f"{B} blocks do not split over dp = {mesh.dp}")
-        tbls = tables(gens, ng)
-        bl, k = B // mesh.dp, ng // tp
+    def fn(scalars: torch.Tensor) -> list:
+        B = scalars.shape[0]
+        if B % mesh.dp or scalars.shape[1] != ng:
+            raise ValueError(f"{tuple(scalars.shape[:2])} scalars do not "
+                             f"split over dp = {mesh.dp} and {ng} bases")
+        bl = B // mesh.dp
         out = [None] * mesh.dp
         for b in mesh.rows:
             parts = []

@@ -111,6 +111,9 @@ class PorlaClient:
                 "big") % BN254_R
             self.h = ecc.mul(ecc.BN254, bp.G1, hr)
             self.ops = bn254()
+        # h's table, for every complement: h^PRF is K4 over 128 bits
+        self.h_table = cuda_curve.fixed_base_table(self.ops, [self.h],
+                                                   nbits=128)
         self.data_rng = Prg(data_seed or os.urandom(16), 1)
         self.audit_seed_rng = Prg(os.urandom(16), 2)
         self.write_step = 0
@@ -142,8 +145,8 @@ class PorlaClient:
                     [kzg.commit_eval(self.tau, self.alpha, b)
                      for b in blocks], self.device)
             scalars = torch.stack([limbs.ints_to_tensor(b) for b in blocks])
-            return pedersen.commit_blocks(self.alpha_gens,
-                                          scalars.to(self.device), self.ops)
+            return pedersen.commit_blocks(self.alpha_table,
+                                          scalars.to(self.device))
 
     # ----------------------------------------------------- MAC complements
 
@@ -158,9 +161,7 @@ class PorlaClient:
             else:
                 rs = self.prf.prf_scalars_kzg(records, BN254_R)
             sc = limbs.ints_to_tensor(rs, self.device)
-            tbl = cuda_curve.fb_table_for(
-                self.ops, self.ops.from_affine([self.h]), nbits=128)
-            return cuda_curve.fb_scalar_mul(tbl, sc)
+            return cuda_curve.fb_scalar_mul(self.h_table, sc)
 
     # ----------------------------------------------------------- initialize
 
@@ -180,12 +181,11 @@ class PorlaClient:
             reply = self.transport(b"GET GENERATORS")
             ops = self.ops
             affine = ops.to_affine(points_io.points_from_bytes(reply, ops))
-            self.generators = ops.from_affine(affine[:NUM_CHUNKS],
-                                              self.device)
-            self.u = affine[NUM_CHUNKS]
+            self.ipa_key = ipa.IpaKey(affine[:NUM_CHUNKS], affine[NUM_CHUNKS],
+                                      self.device)
             with trace.span("client.alpha_generators"):
-                self.alpha_gens = pedersen.alpha_generators(
-                    self.alpha).to(self.device)
+                self.alpha_table = cuda_curve.fixed_base_table(
+                    ops, pedersen.alpha_generators(self.alpha))
         else:
             # kzg: the client runs the trusted setup and ships the SRS
             # (init_SRS + send, Client.hpp:347-364)
@@ -382,7 +382,7 @@ class PorlaClient:
             raise AuditError("MAC equation failed: data loss detected")
 
         if self.config.scheme == "ipa":
-            ipa.verify(commitment, reply[99:], self.generators, self.u)
+            ipa.verify(commitment, reply[99:], self.ipa_key)
             return
         H = ecc.bn254_unmarshal(reply[64:128])
         z = int.from_bytes(reply[128:160], "big")

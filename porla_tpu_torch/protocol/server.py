@@ -63,17 +63,31 @@ class PorlaServer:
         self.config = config
         self.device = native.resolve_device(device)
         self.store = BlockStore(config.storage_dir)
+        # commit_table: the K4 table every commitment batch reads, the IPA
+        # generators' or, once the client sends it, the SRS's
+        self._srs = None
         if config.scheme == "ipa":
-            gens, self.u, self._gens_affine = pedersen.ipa_generators()
-            self.generators = gens.to(self.device)
+            self.ipa_key = ipa.IpaKey(*pedersen.ipa_generators(), self.device)
+            self.commit_table = self.ipa_key.table
             self.ops = secp256k1()
         else:  # kzg: the SRS arrives from the client (Server.hpp:179-194)
-            self.srs = None
+            self.commit_table = None
             self.ops = bn254()
         self.num_blocks = 0
         self.write_step = 0
         self._mesh = config.mesh
         self._state = "generators"
+
+    @property
+    def srs(self):
+        """The KZG SRS, None until the client sends it. Setting it makes
+        its G1 table the commit table."""
+        return self._srs
+
+    @srs.setter
+    def srs(self, srs) -> None:
+        self._srs = srs
+        self.commit_table = srs.table
 
     # ------------------------------------------------------------------ wire
 
@@ -83,7 +97,7 @@ class PorlaServer:
             self._state = "num_blocks"
             if self.config.scheme == "ipa":
                 assert msg == b"GET GENERATORS"
-                pts = self._gens_affine + [self.u]
+                pts = self.ipa_key.gens_affine + [self.ipa_key.u]
                 return points_io.points_to_bytes(self.ops.from_affine(pts),
                                                  self.ops)
             # kzg: the first message is the SRS (init_SRS_from_data,
@@ -138,7 +152,7 @@ class PorlaServer:
         self._sh_tab_std = [sharded.stage(mesh, t.to(self.device)) for t in
                             sharded.stage_twiddle_tables_std(ctx)]
         self._sh_pt = sharded.sharded_point_stage_fn(ctx, mesh, self.ops)
-        self._sh_commit = sharded.sharded_commit_fn(mesh, self.ops)
+        self._sh_commit = sharded.sharded_commit_fn(mesh, self.commit_table)
         self._sh_msm32 = sharded.sharded_msm_fn(mesh, self.ops, nbits=32)
         self._sh_pip: dict = {}
 
@@ -415,23 +429,21 @@ class PorlaServer:
             return acc, engine.crt_reduce_mod_p(data, self.mod_q)
 
     def _commit_batch(self, scalars: torch.Tensor) -> JacPoint:
-        """Commit a (B, NUM_CHUNKS, 16) scalar batch: the Pedersen MSM over
-        the IPA generators, or the SRS MSM for KZG (compute_digest_from_srs,
-        main.go:103-116); one K4 launch either way, or with a mesh K4 on
-        every grid cell and `group_sum` over each block's tp partials (the
-        multi-device form of the 8-thread commitment splits,
-        Server.hpp:330-361), B padded to a multiple of dp with zero
-        scalars."""
-        gens = self.generators if self.config.scheme == "ipa" else \
-            self.srs.g1_dev(self.device)
+        """Commit a (B, NUM_CHUNKS, 16) scalar batch over `commit_table`:
+        the Pedersen MSM over the IPA generators, or the SRS MSM for KZG
+        (compute_digest_from_srs, main.go:103-116); one K4 launch either
+        way, or with a mesh K4 on every grid cell and `group_sum` over each
+        block's tp partials (the multi-device form of the 8-thread
+        commitment splits, Server.hpp:330-361), B padded to a multiple of dp
+        with zero scalars."""
         if self._mesh is None:
-            return pedersen.commit_blocks(gens, scalars, self.ops)
+            return pedersen.commit_blocks(self.commit_table, scalars)
         B, dp = scalars.shape[0], self._mesh.dp
         pad = -B % dp
         if pad:
             scalars = torch.cat([scalars, scalars.new_zeros(
                 (pad,) + tuple(scalars.shape[1:]))])
-        out = sharded.gather(self._mesh, self._sh_commit(gens, scalars),
+        out = sharded.gather(self._mesh, self._sh_commit(scalars),
                              self.device)
         return index(out, slice(0, B))
 
@@ -561,7 +573,7 @@ class PorlaServer:
             b_vec.append(v)
             v = (v * v) % self.mod_q.n
         with trace.span("server.audit.prove"):
-            proof = ipa.prove(a_vec, b_vec, self.generators, self.u)
+            proof = ipa.prove(a_vec, b_vec, self.ipa_key)
         with trace.span("server.audit.serialize"):
             return (ecc.secp_serialize_compressed(commitment)
                     + ecc.secp_serialize_compressed(combined_mac)

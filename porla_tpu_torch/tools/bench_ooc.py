@@ -325,16 +325,12 @@ def _stripes(n: int, stripe: int):
 def commit_plain(server, scalars: torch.Tensor) -> JacPoint:
     """The plain version of the server's commitment of a (B, 128, 16)
     scalar batch (`pedersen.commit_blocks`: K4 in groups of 128 lanes), at
-    K4's split for that shape."""
-    gens = server.generators if server.config.scheme == "ipa" else \
-        server.srs.g1_dev(server.device)
+    K4's split for that shape, over the server's own table."""
     B, ng = scalars.shape[0], scalars.shape[1]
-    tbl = cuda_curve.fb_table_for(
-        server.ops, JacPoint(*(c[:ng] for c in gens)), 256)
     flat = scalars.reshape(B * ng, L.NLIMBS).contiguous()
     return cuda_curve.group_sum_plain(
         server.ops, cuda_curve.fb_lanes_plain(
-            tbl, flat, cuda_curve.fb_split(B * ng, ng)), B)
+            server.commit_table, flat, cuda_curve.fb_split(B * ng, ng)), B)
 
 
 def check_data_and_align(server) -> dict:

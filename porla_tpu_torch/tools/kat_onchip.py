@@ -174,7 +174,7 @@ def check_fixed_base(k) -> dict:
     ops = secp256k1()
     cv = ops.curve
     gens = rand_points(k.rng, cv, 4)
-    tbl = cuda_curve.fb_table_for(ops, ops.from_affine(gens))
+    tbl = cuda_curve.build_fb_table(ops, gens)
     sc = [k.rng.randrange(cv.n) for _ in range(3)] + [0]
     got = ops.to_affine(cuda_curve.fb_scalar_mul(
         tbl, L.ints_to_tensor(sc, k.dev)))

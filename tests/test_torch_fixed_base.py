@@ -129,26 +129,29 @@ def test_fb_msm_groups_vs_golden_and_reference(nout, curve):
 
 
 def test_commit_blocks_vs_golden():
-    """commit_blocks is fb_msm_groups with one group of NG lanes a block."""
+    """commit_blocks is fb_msm_groups over its table with one group of NG
+    lanes a block."""
     ops = secp256k1()
     gens = _gens(8)
     sc = _scalars(24, 256)
-    got = pedersen.commit_blocks(ops.from_affine(gens),
-                                 L.ints_to_tensor(sc).reshape(3, 8, 16), ops)
+    tbl = cc.fixed_base_table(ops, gens)
+    got = pedersen.commit_blocks(tbl, L.ints_to_tensor(sc).reshape(3, 8, 16))
     assert ops.to_affine(got) == [ecc.msm(CUR, gens, sc[8 * b:8 * b + 8])
                                   for b in range(3)]
+    with pytest.raises(ValueError):        # 4 scalars a block, 8 bases
+        pedersen.commit_blocks(tbl, L.ints_to_tensor(sc).reshape(6, 4, 16))
 
 
 def test_commit_blocks_over_srs():
-    """The KZG server's commitments: commit_blocks over an SRS of 8 powers
-    on BN254 is [f(tau)]G1 a block, the client's commit_eval with
-    alpha = 1."""
+    """The KZG server's commitments: commit_blocks over the table of an SRS
+    of 8 powers on BN254 is [f(tau)]G1 a block, the client's commit_eval
+    with alpha = 1."""
     ops = bn254()
     tau = 123456789
     srs = kzg.KzgSrs.from_tau(tau, 8)
     sc = _scalars(16, 256, seed=5, cur=ecc.BN254)
-    got = pedersen.commit_blocks(srs.g1_dev("cpu"),
-                                 L.ints_to_tensor(sc).reshape(2, 8, 16), ops)
+    got = pedersen.commit_blocks(srs.table,
+                                 L.ints_to_tensor(sc).reshape(2, 8, 16))
     assert ops.to_affine(got) == [kzg.commit_eval(tau, 1, sc[8 * b:8 * b + 8])
                                   for b in range(2)]
 

@@ -46,13 +46,14 @@ def case():
     for _ in range(NUM_CHUNKS):
         b.append(x)
         x = x * x % Q
-    gens, u, affine = pedersen.ipa_generators()
+    affine, u = pedersen.ipa_generators()
+    key = ipa.IpaKey(affine, u, "cpu")
     cv = ref_ecc.SECP256K1
     commitment = None
     for g, s in zip(affine, a):
         commitment = ref_ecc.add(cv, commitment, ref_ecc.mul(cv, g, s % Q))
-    proof = ipa.prove(a, b, gens, u)
-    return dict(a=a, b=b, gens=gens, u=u, affine=affine,
+    proof = ipa.prove(a, b, key)
+    return dict(a=a, b=b, key=key, u=u, affine=affine,
                 commitment=commitment, proof=proof)
 
 
@@ -69,20 +70,20 @@ def zero_case(case):
     cv = ref_ecc.SECP256K1
     commitment = ref_ecc.add(cv, case["commitment"], ref_ecc.mul(
         cv, case["affine"][0], (a[0] - case["a"][0]) % Q))
-    proof = ipa.prove(a, b, case["gens"], case["u"])
+    proof = ipa.prove(a, b, case["key"])
     return dict(case, a=a, commitment=commitment, proof=proof)
 
 
 def test_prove_verify_roundtrip(case):
     assert len(case["proof"]) == 32 + 6 * (33 + 33) + 4 * 32 == 556
-    ipa.verify(case["commitment"], case["proof"], case["gens"], case["u"])
+    ipa.verify(case["commitment"], case["proof"], case["key"])
 
 
 def test_verify_rejects_wrong_commitment(case):
     cv = ref_ecc.SECP256K1
     wrong = ref_ecc.add(cv, case["commitment"], case["affine"][17])
     with pytest.raises(ipa.IpaVerificationError):
-        ipa.verify(wrong, case["proof"], case["gens"], case["u"])
+        ipa.verify(wrong, case["proof"], case["key"])
 
 
 # byte offsets: ip 0-31; round r's L at 32 + 66 (r - 1), its R 33 after;
@@ -96,7 +97,7 @@ def test_verify_rejects_tampered_proof(case, byte):
     proof = bytearray(case["proof"])
     proof[byte] ^= 1
     with pytest.raises((ipa.IpaVerificationError, ValueError)):
-        ipa.verify(case["commitment"], bytes(proof), case["gens"], case["u"])
+        ipa.verify(case["commitment"], bytes(proof), case["key"])
 
 
 @pytest.mark.parametrize("which", ["case", "zero_case"])
@@ -107,8 +108,7 @@ def test_proof_matches_golden_model(request, which):
 
 
 def test_u_lane_zero_roundtrip(zero_case):
-    ipa.verify(zero_case["commitment"], zero_case["proof"], zero_case["gens"],
-               zero_case["u"])
+    ipa.verify(zero_case["commitment"], zero_case["proof"], zero_case["key"])
 
 
 @pytest.mark.slow

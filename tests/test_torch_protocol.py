@@ -6,7 +6,11 @@ audit whose reply carries a MAC off by one generator refused, the MAC
 check's alpha products lane by lane against that golden model (alpha of
 128 bits on secp256k1, of 254 bits on BN254), the typed update-order
 error, the audit's padding guard, and entry points that take an explicit
-device. Every kernel-backed call takes its plain torch version here;
+device; and, in both schemes, that after initialize neither updates that
+form every level nor an audit build or look up a fixed-base table (every
+table is held by its owner), and that an in-process IPA client and server
+hold one generators' table. Every kernel-backed call takes its plain
+torch version here;
 chip_smoke.py runs the same cycle through the kernels. Updates are in
 test_torch_updates.py, corruption detection in test_torch_corruption.py."""
 
@@ -15,7 +19,7 @@ import torch
 
 from porla_tpu_torch import native
 from porla_tpu_torch.config import PorlaConfig
-from porla_tpu_torch.curves import glv
+from porla_tpu_torch.curves import cuda_curve, glv
 from porla_tpu_torch.curves.instances import bn254, secp256k1
 from porla_tpu_torch.golden import ecc
 from porla_tpu_torch.protocol import auditing
@@ -35,6 +39,17 @@ def pair(tmp_path_factory):
     server = PorlaServer(cfg, device="cpu")
     client = PorlaClient(cfg, InProcTransport(server),
                          data_seed=bytes(range(16)), device="cpu")
+    client.initialize(8)
+    return client, server
+
+
+@pytest.fixture(scope="module")
+def kzg_pair(tmp_path_factory):
+    cfg = PorlaConfig(scheme="kzg",
+                      storage_dir=str(tmp_path_factory.mktemp("kzg_store")))
+    server = PorlaServer(cfg, device="cpu")
+    client = PorlaClient(cfg, InProcTransport(server),
+                         data_seed=bytes([5] * 16), device="cpu")
     client.initialize(8)
     return client, server
 
@@ -125,3 +140,34 @@ def test_audit_plan_larger_than_its_padding_refused(pair, monkeypatch, party):
         else:
             server.audit(bytes(range(16)))
     assert not sent
+
+
+@pytest.mark.parametrize("scheme", ["ipa", "kzg"])
+def test_ops_build_no_fixed_base_table(request, monkeypatch, scheme):
+    """Every K4 table is built by its owner at construction or initialize:
+    n updates, which form every level (the folds into levels 0 to
+    height - 2 and the epoch's CRebuild of the top level), and an audit
+    then build no table and look none up. In one process the IPA client's
+    key and the server's hold one generators' table, the server's commit
+    table."""
+    client, server = request.getfixturevalue(
+        "pair" if scheme == "ipa" else "kzg_pair")
+    if scheme == "ipa":
+        assert client.ipa_key.table is server.ipa_key.table
+        assert server.commit_table is server.ipa_key.table
+    else:
+        assert server.commit_table is server.srs.table
+    calls = []
+    monkeypatch.setattr(cuda_curve, "build_fb_table",
+                        lambda *a, **k: calls.append("build"))
+    monkeypatch.setattr(cuda_curve, "fixed_base_table",
+                        lambda *a, **k: calls.append("lookup"))
+    n, formed = client.num_blocks, set()
+    for _ in range(n):
+        ws = client.write_step + 1
+        formed.add((ws & -ws).bit_length() - 1 if ws % n
+                   else server.height - 1)
+        client.update(client.write_step % n + 1)
+    assert formed == set(range(server.height))
+    client.audit(seed=bytes(range(5, 21)))
+    assert calls == []

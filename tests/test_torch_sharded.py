@@ -28,6 +28,7 @@ from porla_tpu.golden import ecc as jecc
 from porla_tpu.ntt import engine as jeng
 from porla_tpu.parallel import sharded as jsharded
 from porla_tpu_torch.crypto import testrand
+from porla_tpu_torch.curves import cuda_curve
 from porla_tpu_torch.curves.instances import secp256k1
 from porla_tpu_torch.curves.weierstrass import JacPoint
 from porla_tpu_torch.fields import limbs as L
@@ -158,21 +159,28 @@ def test_point_stage_matches_golden(s):
     assert got == want
 
 
-def test_commit_matches_golden():
-    """TP commitments: 4 generators over tp = 2, 4 blocks over dp = 2."""
+def test_commit_matches_golden(monkeypatch):
+    """TP commitments: 4 generators over tp = 2, 4 blocks over dp = 2, over
+    the table of the generators that the caller owns; the per-shard tables
+    are views of it made once, so neither call builds a table."""
     ops = secp256k1()
     nchunks, nblocks = 4, 4
     gens_aff, _ = testrand.derive_ipa_generators(nchunks)
-    gens = ops.from_affine(gens_aff)
+    table = cuda_curve.build_fb_table(ops, gens_aff, nbits=NBITS)
     rng = np.random.default_rng(7)
     sc = rng.integers(0, 1 << 16, (nblocks, nchunks, 16), dtype=np.uint32)
     mesh = sharded.make_mesh([CPU] * 4)
-    fn = sharded.sharded_commit_fn(mesh, ops, nbits=NBITS)
-    got = ops.to_affine(sharded.gather(mesh, fn(gens, L.to_torch(sc)), CPU))
-    for b in range(nblocks):
-        ks = [JL.limbs_to_int(sc[b, c]) & ((1 << NBITS) - 1)
-              for c in range(nchunks)]
-        assert got[b] == jecc.msm(CV, gens_aff, ks)
+    fn = sharded.sharded_commit_fn(mesh, table)
+    builds = []
+    monkeypatch.setattr(cuda_curve, "build_fb_table",
+                        lambda *a, **k: builds.append(a))
+    for _ in range(2):
+        got = ops.to_affine(sharded.gather(mesh, fn(L.to_torch(sc)), CPU))
+        for b in range(nblocks):
+            ks = [JL.limbs_to_int(sc[b, c]) & ((1 << NBITS) - 1)
+                  for c in range(nchunks)]
+            assert got[b] == jecc.msm(CV, gens_aff, ks)
+    assert builds == []
 
 
 def test_msm_matches_golden():

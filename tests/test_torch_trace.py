@@ -161,7 +161,10 @@ def _cycle(scheme, store):
         cfg = PorlaConfig(scheme=scheme, storage_dir=str(store))
         server = PorlaServer(cfg, device="cpu")
         client = PorlaClient(cfg, InProcTransport(server), device="cpu")
+        # construction builds the parties' K4 tables in spans: the cycle's
+        # spans and ranges both start here
         trace.reset()
+        ranges.names.clear()
         trace.enable(True)
         client.initialize(8)
         for _ in range(4):
