@@ -7,7 +7,13 @@ porla/Utils/secp256k1_lib/hash_impl.h:151-168) pushes the padding through
 the normal write path (advancing the byte counter) and then ZEROES the state
 words. Subsequent writes therefore compress against an all-zero chaining
 value with a byte counter that continues from the padded total. Python's
-hashlib cannot express this, so we implement the state machine directly.
+hashlib cannot express this, so the state machine is written here twice:
+`Sha256`, on the port's native runtime (`runtime/native/porla_rt.cc`, over
+a state record the object owns), which the IPA's transcript runs on, and
+`Sha256Plain`, the same state machine in Python integers (`_compress`),
+which the golden prover (`golden/ipa.py`) and the tests hold it against.
+A failed build or load of the runtime raises: nothing falls back to the
+Python compression.
 
 Also provides HMAC-SHA256 and the RFC6979 HMAC-DRBG used by secp256k1's
 test RNG (testrand), which the reference uses (unseeded!) to derive the
@@ -17,6 +23,9 @@ IPA generator points.
 from __future__ import annotations
 
 import struct
+
+from porla_tpu_torch.runtime import lib as rt
+from porla_tpu_torch.utils import trace
 
 _IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
        0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
@@ -66,8 +75,9 @@ def _compress(state: list[int], block: bytes) -> None:
     state[7] = (state[7] + h) & _M32
 
 
-class Sha256:
-    """secp256k1-compatible incremental SHA-256.
+class Sha256Plain:
+    """secp256k1-compatible incremental SHA-256 in Python integers: the
+    plain version of `Sha256`.
 
     Unlike hashlib, ``finalize`` mutates the object the same way
     libsecp256k1 does (state zeroed, byte counter keeps running), so a
@@ -79,7 +89,7 @@ class Sha256:
         self.buf = b""
         self.bytes = 0
 
-    def write(self, data: bytes) -> "Sha256":
+    def write(self, data: bytes) -> "Sha256Plain":
         self.bytes += len(data)
         data = self.buf + data
         n_blocks = len(data) // 64
@@ -96,6 +106,33 @@ class Sha256:
         self.write(struct.pack(">II", (nbytes >> 29) & _M32, (nbytes << 3) & _M32))
         out = struct.pack(">8I", *self.state)
         self.state = [0] * 8
+        return out
+
+
+_INITIAL = bytes(rt.Sha256State(s=_IV))     # a fresh state record
+
+
+class Sha256:
+    """`Sha256Plain`'s state machine on the native runtime: the same bytes,
+    with the compression in C++. The state lives in `state`, an
+    `rt.Sha256State` the object owns. Every block the runtime compresses,
+    in a write or a finalize, is counted on the trace counter
+    `sha256.blocks` (a no-op with tracing off): 14 a side of an IPA
+    proof."""
+
+    __slots__ = ("state",)
+
+    def __init__(self):
+        self.state = rt.Sha256State.from_buffer_copy(_INITIAL)
+
+    def write(self, data: bytes) -> "Sha256":
+        trace.count("sha256.blocks", rt.sha256_write(self.state, bytes(data)))
+        return self
+
+    def finalize(self) -> bytes:
+        # hash_impl.h:151-168: pad via write(), output state, zero state.
+        out, blocks = rt.sha256_finalize(self.state)
+        trace.count("sha256.blocks", blocks)
         return out
 
 

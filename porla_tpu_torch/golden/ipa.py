@@ -5,12 +5,14 @@ K4, u's terms in the same launch) to it byte for byte.
 The same transcript and scalar folding as `commit/ipa.prove` (reference
 Server.hpp:2279-2452), with each round's L = msm_l + cL u and
 R = msm_r + cR u computed one point at a time by the golden model's
-curve arithmetic (`golden/ecc.py`).
+curve arithmetic (`golden/ecc.py`), and the transcript hashed by the
+plain SHA-256 (`crypto.shas.Sha256Plain`, Python integers), so that the
+comparison sets it against the prover's native one.
 """
 
 from __future__ import annotations
 
-from porla_tpu_torch.crypto.shas import Sha256
+from porla_tpu_torch.crypto.shas import Sha256Plain
 from porla_tpu_torch.golden import ecc
 
 INIT_STR = b"hash of P, c, etc. all that jazz"
@@ -25,7 +27,7 @@ def prove(a: list[int], b: list[int], gens: list, u) -> bytes:
     a, b = list(a), list(b)
     proof = bytearray((sum(x * y for x, y in zip(a, b)) % q)
                       .to_bytes(32, "little"))
-    sha = Sha256()
+    sha = Sha256Plain()
     sha.write(INIT_STR)
     sha.write(bytes(proof))
     random_str = sha.finalize()

@@ -1,15 +1,16 @@
 """ctypes binding of the port's native host runtime (`native/porla_rt.cc`).
 
 AES-128 ECB (AES-NI on x86-64; the MAC PRF is ECB over packed records),
-the emp-style PRG expansion and batched file reads, writes and deletes on
-a pool of threads (the reference's audit reads on 8 threads,
-Server.hpp:742-776). The first call builds the library with g++ into
-`runtime/build/`, keyed by a hash of the source and the flags so that an
-unchanged tree reuses it. The compiler writes a file
-of its own process's name and `os.replace` moves it into place, so
-processes that build at once never load a half-written library. A failed
-build or load raises: nothing falls back to the numpy AES or to a Python
-file loop.
+the emp-style PRG expansion, the IPA transcript's SHA-256 over a state
+record the caller owns (`Sha256State`; `crypto.shas.Sha256` wraps it) and
+batched file reads, writes and deletes on a pool of threads (the
+reference's audit reads on 8 threads, Server.hpp:742-776). The first call
+builds the library with g++ into `runtime/build/`, keyed by a hash of the
+source and the flags so that an unchanged tree reuses it. The compiler
+writes a file of its own process's name and `os.replace` moves it into
+place, so processes that build at once never load a half-written library.
+A failed build or load raises: nothing falls back to the numpy AES, to
+the Python SHA-256 compression or to a Python file loop.
 """
 
 from __future__ import annotations
@@ -35,10 +36,22 @@ FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread") + (
 # section 3, chip_smoke.py's `store_io` lines)
 THREADS = 32
 
+
+class Sha256State(ctypes.Structure):
+    """`porla_rt.cc`'s `PorlaSha256`: the chaining words `s`, the block
+    buffer `buf` (its fill is `bytes % 64`) and the byte counter `bytes`,
+    which runs on across finalizes."""
+    _fields_ = [("s", ctypes.c_uint32 * 8), ("buf", ctypes.c_uint8 * 64),
+                ("bytes", ctypes.c_uint64)]
+
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_SHA = ctypes.POINTER(Sha256State)
 _SIGNATURES = {
     "porla_aes128_ecb": ([_P, _P, _P, _I64], None),
+    "porla_sha256_write": ([_SHA, ctypes.c_char_p, _I64], _I64),
+    "porla_sha256_finalize": ([_SHA, ctypes.c_char_p], _I64),
     "porla_prg_expand": ([_P, ctypes.c_uint64, _P, _I64], None),
     "porla_read_files": ([_P, _I64, _I64, _P, ctypes.c_int32], _I64),
     "porla_write_files": ([_P, _I64, _I64, _P, ctypes.c_int32], _I64),
@@ -78,6 +91,8 @@ def build(cxx: str = CXX, build_dir: str = BUILD_DIR) -> str:
 def library() -> ctypes.CDLL:
     """The loaded runtime (built on first use)."""
     global _lib
+    if _lib is not None:        # set only once whole: no lock on the hot path
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
@@ -119,6 +134,21 @@ def prg_expand(key: bytes, counter: int, nblocks: int) -> bytes:
     out = np.empty(16 * nblocks, np.uint8)
     library().porla_prg_expand(_ptr(_buf(key)), counter, _ptr(out), nblocks)
     return out.tobytes()
+
+
+def sha256_write(state: Sha256State, data: bytes) -> int:
+    """Append `data` (bytes) to the SHA-256 state record; returns the
+    number of blocks compressed."""
+    return library().porla_sha256_write(state, data, len(data))
+
+
+def sha256_finalize(state: Sha256State) -> tuple[bytes, int]:
+    """libsecp256k1's finalize on the state record (hash_impl.h:151-168):
+    the digest and the number of blocks compressed. The chaining words are
+    zeroed and the byte counter runs on."""
+    out = ctypes.create_string_buffer(32)
+    blocks = library().porla_sha256_finalize(state, out)
+    return out.raw, blocks
 
 
 def _paths(paths) -> bytes:

@@ -6,6 +6,11 @@
 //     the emp-style AES-CTR PRG that expands block data and audit seeds
 //     (reference porla/Utils/prg.h, aes.h). AES-NI when the build enables
 //     it (-maes on x86-64), the portable S-box form otherwise.
+//   - SHA-256 with libsecp256k1's incremental state (reference
+//     porla/Utils/secp256k1_lib/hash_impl.h:151-168): the IPA's Fiat-Shamir
+//     transcript (Server.hpp:2306-2432, Client.hpp:1493-1551) writes on
+//     after a finalize, which zeroes the chaining words and keeps the
+//     byte counter. The state is a record the caller owns.
 //   - Batched block-file IO on a pool of threads: the audit path's
 //     threaded reads (reference porla/Server/Server.hpp:742-776) and the
 //     storage tier's codeword and staging files (reference
@@ -34,6 +39,15 @@
 #include <wmmintrin.h>
 #define PORLA_AESNI 1
 #endif
+
+// The SHA-256 state record (the caller owns it; see porla_sha256_write):
+// the chaining words, the block buffer, whose fill is bytes % 64, and the
+// byte counter, which runs on across finalizes.
+struct PorlaSha256 {
+  uint32_t s[8];
+  uint8_t buf[64];
+  uint64_t bytes;
+};
 
 namespace {
 
@@ -134,6 +148,60 @@ void aes128_expand_ni(const uint8_t key[16], AesKeyNI* out) {
 #undef EXP
 }
 #endif
+
+// ---------------------------------------------------------------------------
+// Portable SHA-256 compression (FIPS 180-4).
+// ---------------------------------------------------------------------------
+
+static const uint32_t kSha256K[64] = {
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
+    0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
+    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174, 0xe49b69c1, 0xefbe4786,
+    0x0fc19dc6, 0x240ca1cc, 0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
+    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
+    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85, 0xa2bfe8a1, 0xa81a664b,
+    0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
+    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a,
+    0x5b9cca4f, 0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
+
+inline uint32_t rotr32(uint32_t x, int n) { return (x >> n) | (x << (32 - n)); }
+
+inline uint32_t load_be32(const uint8_t* p) {
+  return (uint32_t{p[0]} << 24) | (uint32_t{p[1]} << 16) |
+         (uint32_t{p[2]} << 8) | uint32_t{p[3]};
+}
+
+inline void store_be32(uint8_t* p, uint32_t x) {
+  p[0] = static_cast<uint8_t>(x >> 24);
+  p[1] = static_cast<uint8_t>(x >> 16);
+  p[2] = static_cast<uint8_t>(x >> 8);
+  p[3] = static_cast<uint8_t>(x);
+}
+
+void sha256_compress(uint32_t s[8], const uint8_t block[64]) {
+  uint32_t w[64];
+  for (int i = 0; i < 16; ++i) w[i] = load_be32(block + 4 * i);
+  for (int i = 16; i < 64; ++i) {
+    uint32_t s0 = rotr32(w[i - 15], 7) ^ rotr32(w[i - 15], 18) ^
+                  (w[i - 15] >> 3);
+    uint32_t s1 = rotr32(w[i - 2], 17) ^ rotr32(w[i - 2], 19) ^
+                  (w[i - 2] >> 10);
+    w[i] = w[i - 16] + s0 + w[i - 7] + s1;
+  }
+  uint32_t a = s[0], b = s[1], c = s[2], d = s[3];
+  uint32_t e = s[4], f = s[5], g = s[6], h = s[7];
+  for (int i = 0; i < 64; ++i) {
+    uint32_t t1 = h + (rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25)) +
+                  ((e & f) ^ (~e & g)) + kSha256K[i] + w[i];
+    uint32_t t2 = (rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22)) +
+                  ((a & b) ^ (a & c) ^ (b & c));
+    h = g, g = f, f = e, e = d + t1, d = c, c = b, b = a, a = t1 + t2;
+  }
+  s[0] += a, s[1] += b, s[2] += c, s[3] += d;
+  s[4] += e, s[5] += f, s[6] += g, s[7] += h;
+}
 
 // Workers kept for the life of the process: a batch of files wakes them
 // in place of starting threads of its own, since on a sandboxed host
@@ -302,6 +370,48 @@ void porla_prg_expand(const uint8_t key[16], uint64_t counter, uint8_t* out,
     std::memcpy(&pts[16 * i], &c, 8);  // little-endian low half
   }
   porla_aes128_ecb(key, pts.data(), out, nblocks);
+}
+
+// SHA-256 write, as libsecp256k1's: append `len` bytes to the state
+// record, compressing each block the buffer fills. Returns the number of
+// blocks compressed.
+int64_t porla_sha256_write(PorlaSha256* h, const uint8_t* data, int64_t len) {
+  int64_t blocks = 0;
+  size_t fill = h->bytes & 63;
+  size_t left = static_cast<size_t>(len);
+  h->bytes += left;
+  while (left >= 64 - fill) {
+    size_t take = 64 - fill;
+    std::memcpy(h->buf + fill, data, take);
+    data += take;
+    left -= take;
+    sha256_compress(h->s, h->buf);
+    ++blocks;
+    fill = 0;
+  }
+  if (left) std::memcpy(h->buf + fill, data, left);
+  return blocks;
+}
+
+// SHA-256 finalize (hash_impl.h:151-168): the padding and the big-endian
+// bit count go through the write path, so the counter advances past them;
+// the digest goes to out32, then the chaining words are zeroed and the
+// counter kept, so that a later write compresses against a zero state.
+// Returns the number of blocks compressed.
+int64_t porla_sha256_finalize(PorlaSha256* h, uint8_t* out32) {
+  static const uint8_t pad[64] = {0x80};
+  uint64_t nbytes = h->bytes;
+  uint8_t sizedesc[8];
+  store_be32(sizedesc, static_cast<uint32_t>(nbytes >> 29));
+  store_be32(sizedesc + 4, static_cast<uint32_t>(nbytes << 3));
+  int64_t padlen = 1 + static_cast<int64_t>((119 - nbytes % 64) % 64);
+  int64_t blocks = porla_sha256_write(h, pad, padlen);
+  blocks += porla_sha256_write(h, sizedesc, 8);
+  for (int i = 0; i < 8; ++i) {
+    store_be32(out32 + 4 * i, h->s[i]);
+    h->s[i] = 0;
+  }
+  return blocks;
 }
 
 // Read `n` files of exactly `record_size` bytes each into a contiguous

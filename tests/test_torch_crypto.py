@@ -4,9 +4,14 @@ crypto/aes.py), each fed the same numpy-seeded inputs as the reference
 package's (porla_tpu.crypto) and held against it byte for byte, and against
 hashlib and FIPS-197 where they apply.
 
-- SHA-256 against hashlib, one shot and incremental, and the reference's
-  state after finalize (the chaining value zeroed, the byte counter running
-  on: libsecp256k1 hash_impl.h:151-168), against an independent simulation.
+- SHA-256, both routes (`shas.Sha256` on the native runtime, which the
+  IPA transcript runs on, and `shas.Sha256Plain` in Python integers), each
+  against hashlib and the reference's `Sha256`, one shot and incremental;
+  the reference's state after finalize (the chaining value zeroed, the
+  byte counter running on: libsecp256k1 hash_impl.h:151-168), against an
+  independent simulation; an IPA transcript's sequence of writes and
+  finalizes; a write after a finalize at every buffer fill; writes across
+  a block boundary.
 - The RFC 6979 HMAC-SHA256 DRBG: deterministic, and the reference's output
   for the same seed.
 - `testrand.TestRand` (libsecp256k1's test RNG): every draw the reference's.
@@ -38,21 +43,31 @@ def _bytes(n: int, tag: int = 0) -> bytes:
     return np.random.default_rng([SEED, tag]).bytes(n)
 
 
+# the transcript's route and its plain version
+SHA_CLASSES = pytest.mark.parametrize(
+    "cls", [shas.Sha256, shas.Sha256Plain], ids=["native", "plain"])
+
+
+@SHA_CLASSES
 @pytest.mark.parametrize("msg", MESSAGES, ids=lambda m: f"len{len(m)}")
-def test_sha256_matches_hashlib(msg):
-    assert shas.sha256(msg) == hashlib.sha256(msg).digest()
-    assert shas.sha256(msg) == ref_shas.sha256(msg)
+def test_sha256_matches_hashlib(msg, cls):
+    got = cls().write(msg).finalize()
+    assert got == hashlib.sha256(msg).digest()
+    assert got == ref_shas.sha256(msg)
+    assert shas.sha256(msg) == got
 
 
-def test_sha256_incremental():
-    h = shas.Sha256()
+@SHA_CLASSES
+def test_sha256_incremental(cls):
+    h = cls()
     h.write(b"hello ")
     h.write(b"world" * 30)
     assert h.finalize() == hashlib.sha256(b"hello " + b"world" * 30).digest()
 
 
-def test_sha256_write_after_finalize_semantics():
-    h, ref = shas.Sha256(), ref_shas.Sha256()
+@SHA_CLASSES
+def test_sha256_write_after_finalize_semantics(cls):
+    h, ref = cls(), ref_shas.Sha256()
     for obj in (h, ref):
         obj.write(b"A" * 32)
     first = h.finalize()
@@ -68,6 +83,58 @@ def test_sha256_write_after_finalize_semantics():
     shas._compress(state, b"\x80" + b"\x00" * 55
                    + struct.pack(">II", 0, 128 * 8))
     assert second == struct.pack(">8I", *state)
+
+
+@SHA_CLASSES
+def test_sha256_transcript_sequence(cls):
+    """One side of an IPA proof's transcript (commit/ipa.py): 32 + 32
+    bytes and a finalize, then 12 writes of 33 bytes (a compressed L or R),
+    each followed by a finalize; every digest the reference's."""
+    h, ref = cls(), ref_shas.Sha256()
+    for obj in (h, ref):
+        obj.write(_bytes(32, 1)).write(_bytes(32, 2))
+    digests = [(h.finalize(), ref.finalize())]
+    for r in range(12):
+        point = _bytes(33, 10 + r)
+        h.write(point)
+        ref.write(point)
+        digests.append((h.finalize(), ref.finalize()))
+    assert all(got == want for got, want in digests)
+    assert len({got for got, _ in digests}) == 13
+
+
+@SHA_CLASSES
+def test_sha256_write_after_finalize_at_every_fill(cls):
+    """A finalize at every buffer fill 0-63, each followed by writes that
+    fill a block and leave a remainder, then a second finalize."""
+    for fill in range(64):
+        h, ref = cls(), ref_shas.Sha256()
+        head, tail = _bytes(64 + fill, fill), _bytes(70, 100 + fill)
+        for obj in (h, ref):
+            obj.write(head)
+        assert h.finalize() == ref.finalize(), fill
+        for obj in (h, ref):
+            obj.write(tail[:3]).write(tail[3:])
+        assert h.finalize() == ref.finalize(), fill
+
+
+@SHA_CLASSES
+@pytest.mark.parametrize("sizes", [(60, 10), (63, 1, 64, 2), (1,) * 130,
+                                   (5, 200, 59, 64)],
+                         ids=["60_10", "63_1_64_2", "bytewise", "5_200_59_64"])
+def test_sha256_writes_across_a_block_boundary(cls, sizes):
+    msg = _bytes(sum(sizes), len(sizes))
+    h, ref = cls(), ref_shas.Sha256()
+    off = 0
+    for n in sizes:
+        h.write(msg[off:off + n])
+        ref.write(msg[off:off + n])
+        off += n
+    digest = h.finalize()
+    assert digest == ref.finalize() == hashlib.sha256(msg).digest()
+    h.write(msg[:70])
+    ref.write(msg[:70])
+    assert h.finalize() == ref.finalize()
 
 
 def test_rfc6979_seeded_vector():

@@ -19,6 +19,12 @@ commitment sum a_i G_i comes from the reference package's golden model
   and a proof with one bit flipped in its inner product, in L of rounds 1, 3
   and 6 (a bit of x, or the sign byte, which negates the point), in R of
   round 6, or in b1 (its lowest and its highest byte).
+- The transcript is hashed on the native runtime: with the plain SHA-256
+  compression (`crypto.shas._compress`) made to refuse, a prove and a
+  verify still give and accept the same proof, and the trace counts 14
+  compressed blocks a side (`sha256.blocks`). The golden prover hashes
+  with that plain version, so the comparison above sets the two routes
+  against each other.
 - Slow tier: the port's proof is byte for byte `porla_tpu.commit.ipa.prove`'s
   on the same inputs (its MSMs compile), and the reference's `verify`
   accepts it.
@@ -31,7 +37,9 @@ import torch
 from porla_tpu.golden import ecc as ref_ecc
 from porla_tpu_torch.commit import ipa, pedersen
 from porla_tpu_torch.config import NUM_CHUNKS
+from porla_tpu_torch.crypto import shas
 from porla_tpu_torch.golden import ipa as golden_ipa
+from porla_tpu_torch.utils import trace
 
 torch.set_num_threads(1)     # small tensors; xdist runs files side by side
 Q = ipa.Q
@@ -109,6 +117,28 @@ def test_proof_matches_golden_model(request, which):
 
 def test_u_lane_zero_roundtrip(zero_case):
     ipa.verify(zero_case["commitment"], zero_case["proof"], zero_case["key"])
+
+
+def test_transcript_compresses_no_block_in_python(case, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("a Python SHA-256 compression on the IPA's path")
+    monkeypatch.setattr(shas, "_compress", refuse)
+
+    def blocks():
+        return sum(v["count"] for k, v in trace.summary().items()
+                   if k.endswith("sha256.blocks"))
+    trace.reset()
+    trace.enable(True)
+    try:
+        proof = ipa.prove(case["a"], case["b"], case["key"])
+        proved = blocks()
+        ipa.verify(case["commitment"], proof, case["key"])
+        both = blocks()
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert proof == case["proof"]
+    assert (proved, both) == (14, 28)
 
 
 @pytest.mark.slow

@@ -2,6 +2,8 @@
 porla_tpu_torch server at n = 8 over the in-process transport — initialize,
 an audit that verifies (the MAC equation and the IPA transcript) and runs
 no scalar multiplication of the golden model (`golden/ecc.py`'s `mul`), an
+audit that compresses no SHA-256 block in Python (its 28 blocks, 14 a side
+of the IPA transcript, on the native runtime), an
 audit whose reply carries a MAC off by one generator refused, the MAC
 check's alpha products lane by lane against that golden model (alpha of
 128 bits on secp256k1, of 254 bits on BN254), the typed update-order
@@ -19,6 +21,7 @@ import torch
 
 from porla_tpu_torch import native
 from porla_tpu_torch.config import PorlaConfig
+from porla_tpu_torch.crypto import shas
 from porla_tpu_torch.curves import cuda_curve, glv
 from porla_tpu_torch.curves.instances import bn254, secp256k1
 from porla_tpu_torch.golden import ecc
@@ -28,6 +31,7 @@ from porla_tpu_torch.protocol.client import (AuditError, PorlaClient,
                                              alpha_products)
 from porla_tpu_torch.protocol.server import PorlaServer
 from porla_tpu_torch.protocol.transport import InProcTransport
+from porla_tpu_torch.utils import trace
 
 torch.set_num_threads(1)     # small tensors; xdist runs files side by side
 
@@ -68,6 +72,28 @@ def test_audit_runs_no_host_scalar_mul(pair, monkeypatch):
         raise AssertionError("the golden model's mul on an audit's path")
     monkeypatch.setattr(ecc, "mul", refuse)
     client.audit(seed=bytes(range(3, 19)))
+
+
+def test_audit_compresses_no_block_in_python(pair, monkeypatch):
+    client, _ = pair
+
+    def refuse(*args):
+        raise AssertionError("a Python SHA-256 compression on an audit")
+    monkeypatch.setattr(shas, "_compress", refuse)
+    trace.reset()
+    trace.enable(True)
+    try:
+        client.audit(seed=bytes(range(5, 21)))
+        counts = {k: v["count"] for k, v in trace.summary().items()
+                  if k.endswith("sha256.blocks")}
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert sum(counts.values()) == 28
+    # 14 a side: the prover's under the server's audit, the verifier's
+    # under the client's ipa.verify
+    assert sum(v for k, v in counts.items() if "server.audit.prove" in k) == 14
+    assert sum(v for k, v in counts.items() if "ipa.verify" in k) == 14
 
 
 def test_mac_off_by_a_generator_refused(pair, monkeypatch):

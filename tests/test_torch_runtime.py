@@ -5,7 +5,10 @@ porla_rt.cc built with g++ at first use) against its numpy plain version
 tests/test_runtime_native.py: AES-128 ECB, the PRG expansion (mid-stream
 counter included), the MAC PRF, batched file reads, writes and deletes
 (in one directory and across several, from concurrent callers and a
-forked child), and a build that fails raises."""
+forked child), and a build that fails raises. And the SHA-256 state
+record, read field by field against the plain state machine
+(`crypto.shas.Sha256Plain`): a finalize zeroes the chaining words and the
+byte counter runs on; each call returns the blocks it compressed."""
 
 import os
 import random
@@ -16,7 +19,7 @@ import numpy as np
 import pytest
 
 from porla_tpu.crypto import aes as ref
-from porla_tpu_torch.crypto import aes
+from porla_tpu_torch.crypto import aes, shas
 from porla_tpu_torch.runtime import lib as rt
 
 
@@ -67,6 +70,37 @@ def test_mac_prf_matches_plain():
     assert prf.prf_scalars_ipa(records) == [
         int.from_bytes(ct[k:k + 16], "little") for k in range(0, len(ct), 16)]
     assert prf.prf_block(*records[5]) == ct[80:96]
+
+
+def test_sha256_state_record_runs_on_after_finalize():
+    h, plain = shas.Sha256(), shas.Sha256Plain()
+    st = h.state
+
+    def same_state():
+        assert list(st.s) == plain.state
+        assert st.bytes == plain.bytes
+        assert bytes(st.buf)[:st.bytes % 64] == plain.buf
+
+    same_state()
+    assert rt.sha256_write(st, b"x" * 100) == 1       # one block, 36 left
+    plain.write(b"x" * 100)
+    same_state()
+    digest, blocks = rt.sha256_finalize(st)
+    assert blocks == 1 and digest == plain.finalize()
+    same_state()
+    assert list(st.s) == [0] * 8 and st.bytes == 128   # padded to 2 blocks
+    # a write after the finalize compresses against the zero state
+    assert rt.sha256_write(st, b"y" * 33) == 0
+    plain.write(b"y" * 33)
+    digest, blocks = rt.sha256_finalize(st)
+    assert blocks == 1 and digest == plain.finalize()
+    assert st.bytes == 192 and list(st.s) == [0] * 8
+    # a 56-byte fill leaves no room for the length: padding takes 2 blocks
+    assert rt.sha256_write(st, b"z" * 56) == 0
+    plain.write(b"z" * 56)
+    digest, blocks = rt.sha256_finalize(st)
+    assert blocks == 2 and digest == plain.finalize()
+    same_state()
 
 
 def test_batched_file_io_roundtrip(tmp_path):
